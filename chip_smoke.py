@@ -18,7 +18,17 @@ Phases, one JSON line each:
    continue bitwise, and one fused_dense_gnn launch per tick;
 5. scan: DenseGCM.scan over [32, 256, 8] against the CPU copy (atol 1e-4),
    and the same model with DenseGNN(fuse="") through
-   fused_dense_graph_conv.
+   fused_dense_graph_conv;
+6. sparse: the README's SparseGCM (readme_sparse_gcm) over [32, 128, 8] in
+   four chained windows of 32, a window with ragged taus, the same weights
+   in the dense README model (the dense == sparse contract), the same model
+   with aggregation="slots", and SparseGCM.scan over [32, 64, 8] with dones,
+   each against a CPU copy loaded from the same numpy weights (atol 1e-4;
+   edge lists, t and num_edges exactly equal), with exact launch counts of
+   spmm_edge_list and spmm_slots.
+Phase 3 also holds spmm_edge_list and spmm_slots against their plain
+versions (1e-5) beside one torch.sparse.mm call on a block-diagonal COO
+matrix of the same edges, and checks their refusals.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero and prints no result.
 """
@@ -50,11 +60,12 @@ def check(cond: bool, msg: str) -> None:
 
 
 def device_events(prof):
-    """(name, self device µs) of the device-side events of a profile: an
-    aten op's own entry would repeat the time of the kernels it launched."""
+    """(name, self device µs, count) of the device-side events of a profile:
+    an aten op's own entry would repeat the time of the kernels it
+    launched."""
     from torch.autograd import DeviceType
 
-    return [(e.key[:80], e.self_device_time_total)
+    return [(e.key[:80], e.self_device_time_total, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
@@ -64,33 +75,36 @@ def time_ms(fn, reps: int = 20, rounds: int = 5,
     CUDA events around reps back-to-back calls, over reps. device_ms: a spin
     kernel first holds the stream until the host has enqueued every call
     behind it, so the events bracket the calls' kernels with no idle gaps
-    between them. call_ms: the same without the spin; where the host
-    enqueues slower than the device runs, it holds the device's idle gaps
-    too."""
+    between them. A function of hundreds of launches fills the launch queue
+    before the spin ends; then fewer calls are queued per round (halved, down
+    to one). call_ms: the same without the spin; where the host enqueues
+    slower than the device runs, it holds the device's idle gaps too."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
 
-    def run(spin_cycles: int) -> tuple[float, bool]:
+    def run(spin_cycles: int, n: int) -> tuple[float, bool]:
         if spin_cycles:
             torch.cuda._sleep(spin_cycles)
         start.record()
-        for _ in range(reps):
+        for _ in range(n):
             fn()
         end.record()
         ahead = not start.query()  # all enqueued before the first call ran
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps, ahead
+        return start.elapsed_time(end) / n, ahead
 
-    calls = [run(0)[0] for _ in range(rounds)]
-    spin = 4_000_000  # ~2 ms at the H100's clock
+    calls = [run(0, reps)[0] for _ in range(rounds)]
+    spin, n = 4_000_000, reps  # ~2 ms at the H100's clock
     devices = []
     while len(devices) < rounds:
-        device, ahead = run(spin)
+        device, ahead = run(spin, n)
         if ahead:
             devices.append(device)
+        elif n > 1:
+            n = max(1, n // 2)
         elif spin < 4_000_000 * 4 ** 5:
             spin *= 4
         else:
@@ -129,16 +143,51 @@ def library_gnn(x, adj, wcats, biases, acts):
     return h
 
 
-def bound_ms(B, N, widths):
-    """Least time on an H100 SXM: dense products at the f32 rate, or each
-    input read once and the output written once, whichever is longer."""
+def bound_ms(nbytes, flops):
+    """Least time on an H100 SXM for a function that must move nbytes (each
+    input read once, each output written once) and do flops f32
+    operations: (ms, what bounds it)."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def dense_bound_ms(B, N, widths):
+    """The dense stack's products at the f32 rate, or its bytes."""
     flops = sum(2 * B * (N * N * fi + 2 * N * fi * fo)
                 for fi, fo in zip(widths[:-1], widths[1:]))
     params = sum(2 * fi * fo + fo for fi, fo in zip(widths[:-1], widths[1:]))
     nbytes = 4 * (B * N * widths[0] + B * N * N + params + B * N * widths[-1])
-    t_ops, t_bytes = flops / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return bound_ms(nbytes, flops)
+
+
+def kernel_row(name, shape, main_path, kernel, plain, library, bound):
+    """Checks a kernel against its plain version (TOL_KERNEL, two launches
+    bitwise equal) and times the kernel, the plain version and the library
+    call; emits and returns the row."""
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    err = float((got - want).abs().max())
+    again = kernel()
+    torch.cuda.synchronize()
+    lib_err = float((library() - want).abs().max())
+    ms, call_ms = time_ms(kernel)
+    plain_ms, plain_call_ms = time_ms(plain)
+    library_ms, library_call_ms = time_ms(library)
+    row = dict(kernel=name, **shape, main_path=main_path, max_abs_err=err,
+               bitwise_repeatable=bool(torch.equal(got, again)),
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               call_ms=call_ms, plain_call_ms=plain_call_ms,
+               library_call_ms=library_call_ms,
+               library_max_abs_err=lib_err, bound_ms=bound[0],
+               bound_by=bound[1])
+    emit("kernel", **row)
+    check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite")
+    check(err <= TOL_KERNEL, f"{name} {shape}: max abs err {err} > "
+          f"{TOL_KERNEL}")
+    check(row["bitwise_repeatable"], f"{name} {shape}: two launches differ")
+    return row
 
 
 def kernel_case(name, B, N, widths, acts, seed, main_path):
@@ -161,35 +210,14 @@ def kernel_case(name, B, N, widths, acts, seed, main_path):
         def plain():
             return fused_dense_graph_conv_plain(x, adj, *flat,
                                                 activation=acts[0])
-    got = kernel()
-    torch.cuda.synchronize()
-    want = plain()
-    err = float((got - want).abs().max())
-    again = kernel()
-    torch.cuda.synchronize()
     wcats = [torch.cat([flat[3 * i], flat[3 * i + 2]], 0)
              for i in range(len(acts))]
     biases = [flat[3 * i + 1] for i in range(len(acts))]
-    lib_err = float((library_gnn(x, adj, wcats, biases, acts) - want)
-                    .abs().max())
-    b_ms, b_by = bound_ms(B, N, widths)
-    ms, call_ms = time_ms(kernel)
-    plain_ms, plain_call_ms = time_ms(plain)
-    library_ms, library_call_ms = time_ms(
-        lambda: library_gnn(x, adj, wcats, biases, acts))
-    row = dict(kernel=name, B=B, N=N, widths=list(widths), acts=list(acts),
-               main_path=main_path, max_abs_err=err,
-               bitwise_repeatable=bool(torch.equal(got, again)),
-               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               call_ms=call_ms, plain_call_ms=plain_call_ms,
-               library_call_ms=library_call_ms,
-               library_max_abs_err=lib_err, bound_ms=b_ms, bound_by=b_by)
-    emit("kernel", **row)
-    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-    check(err <= TOL_KERNEL, f"{name} {B}x{N} {widths} {acts}: max abs err "
-          f"{err} > {TOL_KERNEL}")
-    check(row["bitwise_repeatable"], f"{name}: two launches differ")
-    return row
+    return kernel_row(
+        name, dict(B=B, N=N, widths=list(widths), acts=list(acts)),
+        main_path, kernel, plain,
+        library=lambda: library_gnn(x, adj, wcats, biases, acts),
+        bound=dense_bound_ms(B, N, widths))
 
 
 KERNEL_CASES = [
@@ -239,6 +267,155 @@ def refusal_phase() -> None:
           f"inputs not refused: {sorted(set(cases) - set(refused))}")
     check((fused_dense_gnn.launches, fused_dense_graph_conv.launches)
           == launches, "a refused input was launched")
+    emit("refuse", **refused)
+
+
+# -- phase 3, continued: the SpMM kernels ---------------------------------------
+
+def temporal_edges(B, N, E, hops, steps):
+    """The [B, 2, E] int32 edge list TemporalEdge(hops) leaves after `steps`
+    steps (per new node, hops descending), -1 in the lanes after it."""
+    sinks, srcs = [], []
+    for i in range(1, steps):
+        for h in sorted(hops, reverse=True):
+            if i - h >= 0:
+                sinks.append(i)
+                srcs.append(i - h)
+    check(len(sinks) <= E, "temporal edges overflow the edge list")
+    edges = np.full((B, 2, E), -1, np.int32)
+    edges[:, 0, :len(sinks)] = sinks
+    edges[:, 1, :len(srcs)] = srcs
+    return edges
+
+
+def spmm_inputs(case, B, N, F, E, seed):
+    """x, edges, weights (numpy) for a kernel case."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, N, F)).astype(np.float32)
+    if case == "main path":  # what a 128-step whole window leaves
+        edges = temporal_edges(B, N, E, (1,), N)
+        w = np.ones((B, E), np.float32)
+    elif case == "empty":
+        edges = np.full((B, 2, E), -1, np.int32)
+        w = np.ones((B, E), np.float32)
+    else:
+        edges = rng.integers(0, N, (B, 2, E)).astype(np.int32)
+        if case == "odd":  # -1 in sink-only, source-only and both lanes,
+            edges[:, 0, 1::6] = -1  # and indices of N or more
+            edges[:, 1, 2::6] = -1
+            edges[:, :, 3::6] = -1
+            edges[:, 0, 4::12] = N
+            edges[:, 1, 5::12] = N + 3
+        w = rng.uniform(0.5, 1.5, (B, E)).astype(np.float32)
+    return x, edges, w
+
+
+def block_diagonal_coo(edges, w, N):
+    """The valid lanes of a [B,2,E] edge list as one coalesced sparse COO
+    matrix [B*N, B*N] (sink row, source column), for torch.sparse.mm."""
+    B = edges.shape[0]
+    sink, src = edges[:, 0].long(), edges[:, 1].long()
+    ok = (sink >= 0) & (sink < N) & (src >= 0) & (src < N)
+    off = (torch.arange(B, device=edges.device) * N)[:, None]
+    idx = torch.stack([(sink + off)[ok], (src + off)[ok]])
+    with torch.sparse.check_sparse_tensor_invariants():
+        return torch.sparse_coo_tensor(idx, w[ok], (B * N, B * N)).coalesce()
+
+
+def spmm_case(case, B, N, F, E, seed, main_path):
+    from gcm_tpu_torch.ops.cuda.spmm import (spmm_edge_list,
+                                             spmm_edge_list_plain)
+
+    x, edges, w = (torch.from_numpy(a).cuda()
+                   for a in spmm_inputs(case, B, N, F, E, seed))
+    coo = block_diagonal_coo(edges, w, N)
+    x2 = x.reshape(B * N, F)
+    # the operations this run's data needs: its valid lanes
+    n_valid = int(coo.values().numel())
+    row = kernel_row(
+        "spmm_edge_list", dict(case=case, B=B, N=N, F=F, E=E), main_path,
+        kernel=lambda: spmm_edge_list(x, edges, w),
+        plain=lambda: spmm_edge_list_plain(x, edges, w),
+        library=lambda: torch.sparse.mm(coo, x2).reshape(B, N, F),
+        bound=bound_ms(4 * B * (2 * N * F + 3 * E), 2 * n_valid * F))
+    if case == "empty":
+        check(not bool(row["max_abs_err"]), "empty edge list: not zero")
+    return row
+
+
+def slots_case(case, B, N, F, k, hops, seed, main_path):
+    from gcm_tpu_torch.ops.cuda.spmm_slots import (
+        W, bucket_sink_slots, check_slot_overflow, spmm_slots,
+        spmm_slots_plain)
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((B, N, F))
+                         .astype(np.float32)).cuda()
+    edges = torch.from_numpy(temporal_edges(B, N, len(hops) * N, hops,
+                                            N)).cuda()
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, edges.shape[::2])
+                         .astype(np.float32)).cuda()
+    srcs, ws, counts = bucket_sink_slots(edges, w, N, k)
+    check_slot_overflow(counts, k)
+    coo = block_diagonal_coo(edges, w, N)
+    x2 = x.reshape(B * N, F)
+    P = (N // W) ** 2
+    return kernel_row(
+        "spmm_slots", dict(case=case, B=B, N=N, F=F, k=k), main_path,
+        kernel=lambda: spmm_slots(x, srcs, ws, N, k),
+        plain=lambda: spmm_slots_plain(x, srcs, ws, k),
+        library=lambda: torch.sparse.mm(coo, x2).reshape(B, N, F),
+        bound=bound_ms(4 * B * (2 * F * N + 2 * P * k * W),
+                       2 * int(coo.values().numel()) * F))
+
+
+SPMM_CASES = [
+    # (case, B, N, F, E, main_path)
+    ("main path", 32, 128, 32, 512, True),
+    ("wide", 64, 512, 128, 8192, False),
+    ("odd", 3, 12, 13, 37, False),
+    ("empty", 4, 128, 32, 64, False),
+]
+SLOTS_CASES = [
+    # (case, B, N, F, k, hops, main_path)
+    ("main path", 32, 128, 32, 1, (1,), True),
+    ("many hops", 64, 512, 128, 12, tuple(range(1, 13)), False),
+    ("odd", 2, 256, 13, 2, (1, 2), False),
+]
+
+
+def sparse_refusal_phase() -> None:
+    """Inputs the SpMM kernels do not take raise on the card before any
+    launch: float64, int64 indices, wrong shapes, non-contiguous tensors."""
+    from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
+    from gcm_tpu_torch.ops.cuda.spmm_slots import bucket_sink_slots, spmm_slots
+
+    x, edges, w = (torch.from_numpy(a).cuda()
+                   for a in spmm_inputs("wide", 2, 128, 8, 16, seed=98))
+    srcs, ws, _ = bucket_sink_slots(edges, w, 128, 4)
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)  # same shape, strided
+    cases = {
+        "spmm_float64": lambda: spmm_edge_list(x.double(), edges, w.double()),
+        "spmm_int64_edges": lambda: spmm_edge_list(x, edges.long(), w),
+        "spmm_wrong_shape": lambda: spmm_edge_list(x, edges, w[:, :-1]),
+        "spmm_non_contiguous": lambda: spmm_edge_list(xt, edges, w),
+        "slots_float64": lambda: spmm_slots(x.double(), srcs, ws.double(),
+                                            128, 4),
+        "slots_int64_srcs": lambda: spmm_slots(x, srcs.long(), ws, 128, 4),
+        "slots_wrong_shape": lambda: spmm_slots(x, srcs, ws, 128, 3),
+        "slots_non_contiguous": lambda: spmm_slots(xt, srcs, ws, 128, 4),
+    }
+    launches = (spmm_edge_list.launches, spmm_slots.launches)
+    refused = {}
+    for case, call in cases.items():
+        try:
+            call()
+        except ValueError as e:
+            refused[case] = str(e)
+    check(sorted(refused) == sorted(cases),
+          f"inputs not refused: {sorted(set(cases) - set(refused))}")
+    check((spmm_edge_list.launches, spmm_slots.launches) == launches,
+          "a refused input was launched")
     emit("refuse", **refused)
 
 
@@ -307,33 +484,39 @@ def serve_phase(card: str, seed: int = 0, ticks: int = 200,
          ticks=ticks, max_abs_err_vs_cpu=worst, restored_bitwise=True,
          snapshot_tick=snap_at, stats=stats,
          ticks_per_s=ticks / sum(step_s), us_per_tick_median=1e6 * med,
-         profile=profile_ticks(restored, reqs))
+         profile=dict(requests_per_tick=len(reqs),
+                      **profile_calls(lambda: restored.step(reqs))))
 
 
-def profile_ticks(srv, reqs, n: int = 20) -> dict:
-    """Where a served tick's time goes: torch.profiler over n ticks of the
-    same requests (every session already holds a row). The wall time
-    includes the profiler's own overhead. Where the profiler sees no device
-    activity (its tracing is not always available), the device fields are
-    None: not measured."""
+def profile_calls(run, n: int = 20) -> dict:
+    """Where a call's time goes: torch.profiler over n calls of run(), after
+    one call outside it. The wall time includes the profiler's own overhead.
+    Where the profiler sees no device activity (its tracing is not always
+    available), the device fields are None: not measured."""
     from torch.profiler import ProfilerActivity, profile
 
-    srv.step(reqs)
+    run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            srv.step(reqs)
+            run()
+        torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     device = device_events(prof)
-    device_us = sum(us for _, us in device)
-    top = sorted(device, key=lambda kv: -kv[1])[:8]
+    device_us = sum(us for _, us, _ in device)
+    top = sorted(device, key=lambda e: -e[1])[:8]
+    host = sorted(((e.key[:60], e.self_cpu_time_total)
+                   for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), key=lambda e: -e[1])[:8]
     seen = device_us > 0
-    return dict(ticks=n, requests_per_tick=len(reqs),
-                wall_us_per_tick=wall_us / n,
-                device_us_per_tick=device_us / n if seen else None,
+    return dict(calls=n, wall_us_per_call=wall_us / n,
+                top_host_self_us_per_call={k: us / n for k, us in host},
+                device_us_per_call=device_us / n if seen else None,
                 device_busy_share=device_us / wall_us if seen else None,
-                top_device_us_per_tick={k: us / n for k, us in top}
+                device_kernels_per_call=sum(c for _, _, c in device) / n
+                if seen else None,
+                top_device_us_per_call={k: us / n for k, us, _ in top}
                 if seen else None)
 
 
@@ -384,6 +567,165 @@ def scan_phase(card: str, seed: int = 0, B: int = 32, T: int = 256):
          fused_dense_graph_conv_launches=launched)
 
 
+# -- phase 6: the sparse core ---------------------------------------------------
+
+def numpy_params(seed: int, obs: int = 8, hidden: int = 32) -> dict:
+    """One parameter tree, in the JAX package's layout, for the README's
+    dense and sparse models alike (they share it)."""
+    rng = np.random.default_rng(seed)
+
+    def linear(fin, fout, bias=True):
+        bound = fin ** -0.5
+        p = {"kernel": rng.uniform(-bound, bound, (fin, fout))
+             .astype(np.float32)}
+        if bias:
+            p["bias"] = rng.uniform(-bound, bound, fout).astype(np.float32)
+        return p
+
+    def conv():
+        return {"lin_rel": linear(hidden, hidden),
+                "lin_root": linear(hidden, hidden, bias=False)}
+
+    return {"gnn": [conv(), {}, conv(), {}],
+            "preprocessor": [linear(obs, hidden)], "edge_selectors": {}}
+
+
+def run_windows(model, xs, taus, state, window):
+    """The whole-window forward over xs [B, T, F] in chained windows."""
+    outs = []
+    for w0 in range(0, xs.shape[1], window):
+        out, state, aux = model(xs[:, w0:w0 + window], taus, state,
+                                return_aux=True)
+        check(not bool(aux["dropped_edges"].any()), "edges were dropped")
+        check(not bool(aux.get("slot_overflow", torch.zeros(1)).any()),
+              "slot overflow")
+        outs.append(out)
+    return torch.cat(outs, dim=1), state
+
+
+def sparse_close(label, got, want, state=None, want_state=None) -> float:
+    """Beliefs within TOL_MODEL of the CPU copy's; nodes, edges, t and
+    num_edges exactly equal."""
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite beliefs")
+    err = float((got.cpu() - want).abs().max())
+    check(err <= TOL_MODEL, f"{label}: beliefs differ from the CPU copy by "
+          f"{err} > {TOL_MODEL}")
+    if state is not None:
+        for name in ("nodes", "edges", "t", "num_edges"):
+            check(torch.equal(getattr(state, name).cpu(),
+                              getattr(want_state, name)),
+                  f"{label}: state.{name} differs from the CPU copy")
+    return err
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sparse_phase(card: str, seed: int = 0, B: int = 32, T: int = 128,
+                 window: int = 32, scan_T: int = 64):
+    from gcm_tpu_torch import (load_jax_params, readme_dense_gcm,
+                               readme_sparse_gcm)
+    from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
+    from gcm_tpu_torch.ops.cuda.spmm_slots import spmm_slots
+
+    obs_dim = 8
+    params = numpy_params(seed, obs_dim)
+
+    def model(device, **kw):
+        m = readme_sparse_gcm(obs_size=obs_dim, device=device, **kw)
+        load_jax_params(m, params)
+        return m
+
+    gpu, cpu = model("cuda"), model("cpu")
+    rng = np.random.default_rng(seed + 2)
+    xs = torch.from_numpy(rng.standard_normal((B, T, obs_dim))
+                          .astype(np.float32))
+    xs_c = xs.cuda()
+    full = torch.full((B,), window, dtype=torch.int32)
+    full_c = full.cuda()
+    row = dict(card=card, B=B, T=T, window=window, graph_size=128,
+               max_edges=512)
+    with torch.no_grad():
+        # 1. the whole-window forward, four chained windows
+        want, want_state = run_windows(cpu, xs, full, cpu.initial_state(
+            B, obs_dim), window)
+        before = spmm_edge_list.launches
+        got, state = run_windows(gpu, xs_c, full_c,
+                                 gpu.initial_state(B, obs_dim), window)
+        launched = spmm_edge_list.launches - before
+        row["max_abs_err_vs_cpu"] = sparse_close("whole window", got, want,
+                                                 state, want_state)
+        check(launched == 2 * T // window, f"{launched} spmm_edge_list "
+              f"launches, expected {2 * T // window}")
+        row["spmm_edge_list_launches"] = launched
+        _, secs = timed(lambda: run_windows(
+            gpu, xs_c, full_c, gpu.initial_state(B, obs_dim), window))
+        row["timesteps_per_s"] = B * T / secs
+        state_w = gpu.initial_state(B, obs_dim)
+        row["profile_one_window"] = profile_calls(
+            lambda: gpu(xs_c[:, :window], full_c, state_w))
+
+        # 2. one window with ragged taus, zero past them
+        taus = torch.from_numpy(rng.integers(1, window + 1, B)
+                                .astype(np.int32))
+        pad = torch.arange(window)[None, :, None] < taus[:, None, None]
+        xr = torch.where(pad, xs[:, :window], 0.0)
+        want_r, want_rs = cpu(xr, taus, cpu.initial_state(B, obs_dim))
+        got_r, state_r = gpu(xr.cuda(), taus.cuda(),
+                             gpu.initial_state(B, obs_dim))
+        row["ragged_max_abs_err_vs_cpu"] = sparse_close(
+            "ragged taus", got_r, want_r, state_r, want_rs)
+        check(not bool(torch.where(pad.cuda(), 0.0, got_r).any()),
+              "ragged taus: beliefs past taus are not zero")
+
+        # 3. the dense == sparse contract: the dense README model with the
+        # same weights, scanned step by step (T = graph_size: no wrap)
+        dense = readme_dense_gcm(obs_size=obs_dim, device="cuda")
+        load_jax_params(dense, params)
+        got_d, _ = dense.scan(xs_c, dense.initial_state(B, obs_dim))
+        err_d = float((got_d - got).abs().max())
+        check(err_d <= TOL_MODEL, f"dense and sparse differ by {err_d} > "
+              f"{TOL_MODEL}")
+        row["dense_vs_sparse_max_abs_err"] = err_d
+
+        # 4. aggregation="slots", k = len(hops) = 1
+        slots = model("cuda", aggregation="slots", slot_k=1)
+        before = spmm_slots.launches
+        got_s, state_s = run_windows(slots, xs_c, full_c,
+                                     slots.initial_state(B, obs_dim), window)
+        launched = spmm_slots.launches - before
+        err_s = float((got_s - got).abs().max())
+        check(err_s <= TOL_MODEL, f"slots and default aggregation differ "
+              f"by {err_s} > {TOL_MODEL}")
+        check(torch.equal(state_s.edges, state.edges), "slots: edges differ")
+        check(launched == 2 * T // window, f"{launched} spmm_slots launches, "
+              f"expected {2 * T // window}")
+        row.update(slots_vs_default_max_abs_err=err_s,
+                   spmm_slots_launches=launched)
+        _, secs = timed(lambda: run_windows(
+            slots, xs_c, full_c, slots.initial_state(B, obs_dim),
+            window))
+        row["slots_timesteps_per_s"] = B * T / secs
+
+        # 5. step by step with episode ends
+        dones = torch.zeros((B, scan_T), dtype=torch.bool)
+        dones[::3, 10] = dones[1::4, 25] = dones[:, 50] = True
+        want_sc, want_scs = cpu.scan(xs[:, :scan_T], cpu.initial_state(
+            B, obs_dim), dones=dones)
+        (got_sc, state_sc), secs = timed(lambda: gpu.scan(
+            xs_c[:, :scan_T], gpu.initial_state(B, obs_dim),
+            dones=dones.cuda()))
+        row["scan_max_abs_err_vs_cpu"] = sparse_close(
+            "scan with dones", got_sc, want_sc, state_sc, want_scs)
+        row.update(scan_T=scan_T, scan_timesteps_per_s=B * scan_T / secs)
+    emit("sparse", **row)
+
+
 # -- main ---------------------------------------------------------------------
 
 KERNEL_META = {
@@ -393,6 +735,12 @@ KERNEL_META = {
     "fused_dense_graph_conv": dict(
         source="gcm_tpu_torch/csrc/dense_gnn.cu",
         replaces="gcm_tpu/ops/pallas/dense_gconv.py:51"),
+    "spmm_edge_list": dict(
+        source="gcm_tpu_torch/csrc/spmm.cu",
+        replaces="gcm_tpu/ops/pallas/spmm.py:104"),
+    "spmm_slots": dict(
+        source="gcm_tpu_torch/csrc/spmm_slots.cu",
+        replaces="gcm_tpu/ops/pallas/spmm_slots.py:66"),
 }
 
 
@@ -414,6 +762,8 @@ def main() -> int:
     from gcm_tpu_torch.ops import _build
     from gcm_tpu_torch.ops.cuda.dense_gconv import fused_dense_graph_conv
     from gcm_tpu_torch.ops.cuda.fused_gnn import fused_dense_gnn
+    from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
+    from gcm_tpu_torch.ops.cuda.spmm_slots import spmm_slots
 
     t0 = time.perf_counter()
     waited = _build.build_all()
@@ -425,14 +775,21 @@ def main() -> int:
 
     rows = [kernel_case(*case[:5], seed=i, main_path=case[5])
             for i, case in enumerate(KERNEL_CASES)]
+    rows += [spmm_case(*case[:5], seed=i, main_path=case[5])
+             for i, case in enumerate(SPMM_CASES)]
+    rows += [slots_case(*case[:6], seed=i, main_path=case[6])
+             for i, case in enumerate(SLOTS_CASES)]
     refusal_phase()
+    sparse_refusal_phase()
 
     wrappers = {"fused_dense_gnn": fused_dense_gnn,
-                "fused_dense_graph_conv": fused_dense_graph_conv}
+                "fused_dense_graph_conv": fused_dense_graph_conv,
+                "spmm_edge_list": spmm_edge_list, "spmm_slots": spmm_slots}
     for fn in wrappers.values():
         fn.launches = 0
     serve_phase(card)
     scan_phase(card)
+    sparse_phase(card)
     launches = {k: fn.launches for k, fn in wrappers.items()}
     for k, n in launches.items():
         check(n > 0, f"{k} was not launched on the main path")

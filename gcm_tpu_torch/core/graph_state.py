@@ -1,9 +1,14 @@
-"""The dense recurrent graph-memory state and its fixed-shape update ops
-(counterpart of gcm_tpu/core/graph_state.py, dense half).
+"""The recurrent graph-memory states and their fixed-shape update ops
+(counterpart of gcm_tpu/core/graph_state.py).
 
-`DenseGraphState`: nodes [B,N,F], adj [B,N,N], weights [B,N,N] or a size-0
-placeholder, num_nodes [B] int32. Raggedness lives in `num_nodes`, never in
-shapes. The ops return new tensors and leave their inputs as they were.
+- `DenseGraphState`: nodes [B,N,F], adj [B,N,N], weights [B,N,N] or a
+  size-0 placeholder, num_nodes [B] int32.
+- `SparseGraphState`: nodes [B,N,F], edges [B,2,E] int32 (row 0 sink, row 1
+  source, -1 in unused lanes), weights [B,E], t [B] int32 (nodes in the
+  graph), num_edges [B] int32 (valid edges).
+
+Raggedness lives in `num_nodes`, `t` and the sentinels, never in shapes.
+The ops return new tensors and leave their inputs as they were.
 """
 
 from __future__ import annotations
@@ -21,6 +26,14 @@ class DenseGraphState(NamedTuple):
     num_nodes: torch.Tensor  # [B] int32
 
 
+class SparseGraphState(NamedTuple):
+    nodes: torch.Tensor      # [B, N, F] float
+    edges: torch.Tensor      # [B, 2, E] int32 (sink, source), -1 sentinel
+    weights: torch.Tensor    # [B, E] float
+    t: torch.Tensor          # [B] int32, nodes in the graph before a call
+    num_edges: torch.Tensor  # [B] int32, valid edges
+
+
 def dense_initial_state(B: int, graph_size: int, feat: int,
                         edge_weights: bool = False, dtype=torch.float32,
                         device=None) -> DenseGraphState:
@@ -32,6 +45,22 @@ def dense_initial_state(B: int, graph_size: int, feat: int,
         weights=torch.zeros((B, N, N) if edge_weights else (0,), dtype=dtype,
                             device=device),
         num_nodes=torch.zeros((B,), dtype=torch.int32, device=device),
+    )
+
+
+def sparse_initial_state(B: int, graph_size: int, feat: int, max_edges: int,
+                         edge_fill: int = -1, weight_fill: float = 1.0,
+                         dtype=torch.float32, device=None) -> SparseGraphState:
+    """Empty sparse hidden state: edges hold `edge_fill`, weights
+    `weight_fill` (the packed form's fills)."""
+    return SparseGraphState(
+        nodes=torch.zeros((B, graph_size, feat), dtype=dtype, device=device),
+        edges=torch.full((B, 2, max_edges), edge_fill, dtype=torch.int32,
+                         device=device),
+        weights=torch.full((B, max_edges), weight_fill, dtype=dtype,
+                           device=device),
+        t=torch.zeros((B,), dtype=torch.int32, device=device),
+        num_edges=torch.zeros((B,), dtype=torch.int32, device=device),
     )
 
 
@@ -115,3 +144,16 @@ def reset_where(state, done: torch.Tensor):
 @register_reset(DenseGraphState)
 def _reset_dense(state, mask_for):
     return zero_reset(state, mask_for)
+
+
+@register_reset(SparseGraphState)
+def _reset_sparse(state, mask_for):
+    """Restore the initial fills: edge sentinel -1, weight 1.0."""
+    nodes, edges, weights, t, num_edges = state
+    return SparseGraphState(
+        nodes=torch.where(mask_for(nodes), 0.0, nodes),
+        edges=torch.where(mask_for(edges), -1, edges),
+        weights=torch.where(mask_for(weights), 1.0, weights),
+        t=torch.where(mask_for(t), 0, t),
+        num_edges=torch.where(mask_for(num_edges), 0, num_edges),
+    )

@@ -24,16 +24,26 @@ def _uniform(shape, bound, generator) -> torch.Tensor:
 
 
 class Linear(nn.Module):
+    """init: 'torch' (kaiming-uniform, as above) or 'glorot' (uniform in
+    +-sqrt(6 / (in + out)), GCNConv's)."""
+
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True, *,
-                 device=None, generator: torch.Generator | None = None):
+                 init: str = "torch", device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         device = resolve_device(device)
         self.in_dim = in_dim
         self.out_dim = out_dim
         # kaiming_uniform(a=sqrt(5)): gain * sqrt(3 / fan_in) = 1/sqrt(fan_in)
         bound = 1.0 / math.sqrt(in_dim) if in_dim > 0 else 0.0
+        if init == "glorot":
+            w_bound = math.sqrt(6.0 / (in_dim + out_dim))
+        elif init == "torch":
+            w_bound = bound
+        else:
+            raise ValueError(f"unknown init {init!r}")
         self.kernel = nn.Parameter(
-            _uniform((in_dim, out_dim), bound, generator).to(device))
+            _uniform((in_dim, out_dim), w_bound, generator).to(device))
         self.bias = (nn.Parameter(_uniform((out_dim,), bound, generator)
                                   .to(device)) if use_bias else None)
 

@@ -27,14 +27,15 @@ def check_forward_only(*tensors: torch.Tensor) -> None:
             "torch.no_grad() (their autograd Functions come with training)")
 
 
-def check_cuda_f32(name: str, t: torch.Tensor, shape: tuple,
-                   device: torch.device) -> None:
+def check_cuda(name: str, t: torch.Tensor, shape: tuple,
+               device: torch.device, dtype=torch.float32) -> None:
+    """t is a contiguous CUDA tensor on `device` of `dtype` and `shape`."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {t.device}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: the kernel takes float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from gcm_tpu_torch.ops.cuda._launch import (
-    ACT_CODES, check_aligned16, check_cuda_f32, check_forward_only, check_rc,
+    ACT_CODES, check_aligned16, check_cuda, check_forward_only, check_rc,
     check_sizes, ptr, stream_of)
 from gcm_tpu_torch.ops.cuda.fused_gnn import _lib, fused_dense_gnn_plain
 
@@ -30,12 +30,12 @@ def _launch(x, adj, w_rel, b_rel, w_root, activation):
     Fo = w_rel.shape[-1]
     check_sizes(B, N, (F, Fo))
     dev = x.device
-    check_cuda_f32("x", x, (B, N, F), dev)
-    check_cuda_f32("adj", adj, (B, N, N), dev)
+    check_cuda("x", x, (B, N, F), dev)
+    check_cuda("adj", adj, (B, N, N), dev)
     check_aligned16("adj", adj)
-    check_cuda_f32("w_rel", w_rel, (F, Fo), dev)
-    check_cuda_f32("b_rel", b_rel, (Fo,), dev)
-    check_cuda_f32("w_root", w_root, (F, Fo), dev)
+    check_cuda("w_rel", w_rel, (F, Fo), dev)
+    check_cuda("b_rel", b_rel, (Fo,), dev)
+    check_cuda("w_root", w_root, (F, Fo), dev)
     if activation not in ACT_CODES:
         raise ValueError(f"unsupported activation {activation}")
     out = torch.empty((B, N, Fo), device=dev, dtype=torch.float32)

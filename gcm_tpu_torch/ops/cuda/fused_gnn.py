@@ -16,7 +16,7 @@ import torch
 
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.cuda._launch import (
-    ACT_CODES, apply_act, check_aligned16, check_cuda_f32, check_forward_only,
+    ACT_CODES, apply_act, check_aligned16, check_cuda, check_forward_only,
     check_rc, check_sizes, ptr, stream_of)
 
 
@@ -60,14 +60,14 @@ def _launch(x, adj, flat_params, acts):
                              for i in range(n_layers)]
     check_sizes(B, N, widths)
     dev = x.device
-    check_cuda_f32("x", x, (B, N, widths[0]), dev)
-    check_cuda_f32("adj", adj, (B, N, N), dev)
+    check_cuda("x", x, (B, N, widths[0]), dev)
+    check_cuda("adj", adj, (B, N, N), dev)
     check_aligned16("adj", adj)
     for i in range(n_layers):
         wr, br, wo = flat_params[3 * i: 3 * i + 3]
-        check_cuda_f32(f"w_rel[{i}]", wr, (widths[i], widths[i + 1]), dev)
-        check_cuda_f32(f"b_rel[{i}]", br, (widths[i + 1],), dev)
-        check_cuda_f32(f"w_root[{i}]", wo, (widths[i], widths[i + 1]), dev)
+        check_cuda(f"w_rel[{i}]", wr, (widths[i], widths[i + 1]), dev)
+        check_cuda(f"b_rel[{i}]", br, (widths[i + 1],), dev)
+        check_cuda(f"w_root[{i}]", wo, (widths[i], widths[i + 1]), dev)
     if any(a not in ACT_CODES for a in acts):
         raise ValueError(f"unsupported activations {acts}")
 

@@ -1,10 +1,14 @@
 """Carry weights and state between the JAX package and the port.
 
 `load_jax_params(model, params)` takes the JAX package's parameter tree with
-numpy (or any array-like) leaves, e.g. for a DenseGCM
+numpy (or any array-like) leaves, e.g. for a DenseGCM or a SparseGCM
 {"gnn": [...], "preprocessor": [...], "edge_selectors": {}}, and copies it
 into the port's modules. Both sides store linear kernels [in, out], so
-nothing is transposed.
+nothing is transposed. DenseGraphConv and GraphConv share one layout, so one
+tree loads into the README's dense and sparse models alike.
+
+`state_from_numpy` / `sparse_state_from_numpy` and their `*_to_numpy`
+inverses carry the recurrent states across.
 """
 
 from __future__ import annotations
@@ -12,11 +16,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gcm_tpu_torch.core.graph_state import DenseGraphState
+from gcm_tpu_torch.core.graph_state import DenseGraphState, SparseGraphState
+from gcm_tpu_torch.edges.sparse_temporal import TemporalEdge
 from gcm_tpu_torch.edges.temporal import TemporalBackedge
 from gcm_tpu_torch.models.dense_gcm import DenseGCM
+from gcm_tpu_torch.models.sparse_gcm import SparseGCM
 from gcm_tpu_torch.nn.dense_conv import DenseGNN, DenseGraphConv
 from gcm_tpu_torch.nn.module import MLP, Linear
+from gcm_tpu_torch.nn.sparse_conv import GCNConv, GraphConv, SparseGNN
 
 
 def _copy(param: torch.Tensor, value) -> None:
@@ -33,26 +40,31 @@ def load_jax_params(module, params) -> None:
         _copy(module.kernel, params["kernel"])
         if module.bias is not None:
             _copy(module.bias, params["bias"])
-    elif isinstance(module, DenseGraphConv):
+    elif isinstance(module, (DenseGraphConv, GraphConv)):
         load_jax_params(module.lin_rel, params["lin_rel"])
         load_jax_params(module.lin_root, params["lin_root"])
-    elif isinstance(module, (DenseGNN, MLP)):
+    elif isinstance(module, GCNConv):
+        load_jax_params(module.lin, params["lin"])
+        if module.bias is not None:
+            _copy(module.bias, params["bias"])
+    elif isinstance(module, (DenseGNN, SparseGNN, MLP)):
         if len(params) != len(module.layers):
             raise ValueError(f"{len(params)} parameter entries for "
                              f"{len(module.layers)} layers")
         for layer, p in zip(module.layers, params):
             if isinstance(layer, torch.nn.Module) and p:
                 load_jax_params(layer, p)
-    elif isinstance(module, DenseGCM):
+    elif isinstance(module, (DenseGCM, SparseGCM)):
         load_jax_params(module.gnn, params["gnn"])
         if module.preprocessor is not None:
             load_jax_params(module.preprocessor, params["preprocessor"])
         if module.edge_selectors is not None:
             load_jax_params(module.edge_selectors,
                             params.get("edge_selectors", {}))
-    elif isinstance(module, TemporalBackedge):
+    elif isinstance(module, (TemporalBackedge, TemporalEdge)):
         if params:
-            raise ValueError("TemporalBackedge has no parameters to load")
+            raise ValueError(f"{type(module).__name__} has no parameters to "
+                             "load")
     else:
         raise TypeError(f"no JAX parameter layout known for "
                         f"{type(module).__name__}")
@@ -72,3 +84,20 @@ def state_from_numpy(state, device) -> DenseGraphState:
 
 def state_to_numpy(state: DenseGraphState) -> DenseGraphState:
     return DenseGraphState(*(t.detach().cpu().numpy() for t in state))
+
+
+def sparse_state_from_numpy(state, device) -> SparseGraphState:
+    """A SparseGraphState (or any 5-tuple in its field order) of arrays ->
+    the port's SparseGraphState on `device`."""
+    nodes, edges, weights, t, num_edges = (np.asarray(a) for a in state)
+    return SparseGraphState(
+        nodes=torch.tensor(nodes, dtype=torch.float32, device=device),
+        edges=torch.tensor(edges, dtype=torch.int32, device=device),
+        weights=torch.tensor(weights, dtype=torch.float32, device=device),
+        t=torch.tensor(t, dtype=torch.int32, device=device),
+        num_edges=torch.tensor(num_edges, dtype=torch.int32, device=device),
+    )
+
+
+def sparse_state_to_numpy(state: SparseGraphState) -> SparseGraphState:
+    return SparseGraphState(*(t.detach().cpu().numpy() for t in state))

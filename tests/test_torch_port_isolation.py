@@ -56,8 +56,14 @@ def _cpu_model():
     lambda: g.DenseGCM(g.DenseGNN([g.DenseGraphConv(4, 4, device="cpu")])),
     lambda: g.SessionServer(_cpu_model(), capacity=2, obs_dim=8),
     lambda: g.resolve_device(None),
+    lambda: g.readme_sparse_gcm(),
+    lambda: g.GraphConv(4, 4),
+    lambda: g.GCNConv(4, 4),
+    lambda: g.SparseGCM(g.SparseGNN([g.GraphConv(4, 4, device="cpu")]),
+                        edge_selectors=g.TemporalEdge([1])),
 ], ids=["readme_dense_gcm", "Linear", "DenseGraphConv", "DenseGCM",
-        "SessionServer", "resolve_device"])
+        "SessionServer", "resolve_device", "readme_sparse_gcm", "GraphConv",
+        "GCNConv", "SparseGCM"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")
