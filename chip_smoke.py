@@ -25,10 +25,24 @@ Phases, one JSON line each:
    with aggregation="slots", and SparseGCM.scan over [32, 64, 8] with dones,
    each against a CPU copy loaded from the same numpy weights (atol 1e-4;
    edge lists, t and num_edges exactly equal), with exact launch counts of
-   spmm_edge_list and spmm_slots.
+   spmm_edge_list and spmm_slots;
+7. selectors: the README DenseGCM with CosineEdge(0.5) and SpatialEdge(0.25)
+   (scored by sddmm_threshold_row) served 100 ticks at capacity 256 and
+   scanned over [32, 256, 8], against a CPU copy (adjacency exactly equal,
+   beliefs within 1e-4, one sddmm launch per step), with a bitwise
+   snapshot/restore; DenseEdge and LearnedEdge(deterministic) scanned over
+   [32, 64, 8] the same way; EuclideanEdge(1.0) and the recall chain
+   teacher-forced for 64 steps
+   (their cdist rounds differently on the two devices: an edge may differ
+   only where the float64 score lies within 1e-5 of the threshold); then,
+   timed alone and in turns with the README's temporal selector, 100
+   served ticks with a profiled window each and two rounds of scans.
 Phase 3 also holds spmm_edge_list and spmm_slots against their plain
 versions (1e-5) beside one torch.sparse.mm call on a block-diagonal COO
-matrix of the same edges, and checks their refusals.
+matrix of the same edges, sddmm_threshold_row bitwise against its plain
+version beside a bmm + norms + compare chain, and checks their refusals.
+Phases 4-7 each run with every launch count set to 0 just before and
+read just after; each must launch the kernels of its path.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero and prints no result.
 """
@@ -161,17 +175,18 @@ def dense_bound_ms(B, N, widths):
     return bound_ms(nbytes, flops)
 
 
-def kernel_row(name, shape, main_path, kernel, plain, library, bound):
-    """Checks a kernel against its plain version (TOL_KERNEL, two launches
+def kernel_row(name, shape, main_path, kernel, plain, library, bound,
+               tol=TOL_KERNEL):
+    """Checks a kernel against its plain version (within tol, two launches
     bitwise equal) and times the kernel, the plain version and the library
-    call; emits and returns the row."""
+    call; emits and returns the row. Boolean outputs compare as 0/1."""
     got = kernel()
     torch.cuda.synchronize()
     want = plain()
-    err = float((got - want).abs().max())
+    err = float((got.float() - want.float()).abs().max())
     again = kernel()
     torch.cuda.synchronize()
-    lib_err = float((library() - want).abs().max())
+    lib_err = float((library().float() - want.float()).abs().max())
     ms, call_ms = time_ms(kernel)
     plain_ms, plain_call_ms = time_ms(plain)
     library_ms, library_call_ms = time_ms(library)
@@ -184,8 +199,7 @@ def kernel_row(name, shape, main_path, kernel, plain, library, bound):
                bound_by=bound[1])
     emit("kernel", **row)
     check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite")
-    check(err <= TOL_KERNEL, f"{name} {shape}: max abs err {err} > "
-          f"{TOL_KERNEL}")
+    check(err <= tol, f"{name} {shape}: max abs err {err} > {tol}")
     check(row["bitwise_repeatable"], f"{name} {shape}: two launches differ")
     return row
 
@@ -382,6 +396,125 @@ SLOTS_CASES = [
     ("many hops", 64, 512, 128, 12, tuple(range(1, 13)), False),
     ("odd", 2, 256, 13, 2, (1, 2), False),
 ]
+
+
+def sddmm_inputs(B, N, F, seed):
+    """nodes [B,N,F] standard normal, num_nodes with 0 and N - 1 among
+    them, and curr = nodes[b, num_nodes[b]] (as the selectors gather it), on
+    the card."""
+    g = torch.Generator().manual_seed(seed)
+    nodes = torch.randn((B, N, F), generator=g)
+    num_nodes = torch.randint(0, N, (B,), generator=g, dtype=torch.int32)
+    num_nodes[0], num_nodes[-1] = 0, N - 1
+    curr = nodes[torch.arange(B), num_nodes.long()]
+    return curr.cuda(), nodes.cuda(), num_nodes.cuda()
+
+
+def library_sddmm(curr, nodes, num_nodes, thr, mode):
+    """The same row from torch library calls: one bmm for the dot products,
+    norms, and the compare (the euclidean distance in its expanded form)."""
+    dots = torch.bmm(nodes, curr[:, :, None])[..., 0]
+    if mode == "cosine":
+        score = dots / (torch.linalg.vector_norm(curr, dim=-1, keepdim=True)
+                        .clamp_min(1e-8)
+                        * torch.linalg.vector_norm(nodes, dim=-1)
+                        .clamp_min(1e-8))
+    else:
+        sq = (curr * curr).sum(-1, keepdim=True) - 2 * dots \
+            + (nodes * nodes).sum(-1)
+        score = sq.clamp_min(0).sqrt()
+    iota = torch.arange(nodes.shape[1], device=nodes.device)
+    return (score < thr) & (iota[None, :] < num_nodes[:, None])
+
+
+def sddmm_bound_ms(B, N, F, mode):
+    """Inputs read once, the bool row written once; the operations the
+    score needs (euclidean: sub, mul, add per feature and a sqrt per node;
+    cosine: the dot and the node's norm per feature, curr's norm once per
+    batch element, a sqrt, a product and a division per node)."""
+    nbytes = 4 * (B * F + B * N * F + B) + B * N
+    flops = (3 * B * N * F + B * N if mode == "euclidean"
+             else 4 * B * N * F + 2 * B * F + 3 * B * N)
+    return bound_ms(nbytes, flops)
+
+
+def sddmm_case(case, B, N, F, mode, thr, seed, main_path):
+    from gcm_tpu_torch.ops.cuda.sddmm import (sddmm_threshold_row,
+                                              sddmm_threshold_row_plain)
+
+    curr, nodes, num_nodes = sddmm_inputs(B, N, F, seed)
+    row = kernel_row(
+        "sddmm_threshold_row", dict(case=case, B=B, N=N, F=F, mode=mode,
+                                    threshold=thr), main_path,
+        kernel=lambda: sddmm_threshold_row(curr, nodes, num_nodes, thr, mode),
+        plain=lambda: sddmm_threshold_row_plain(curr, nodes, num_nodes, thr,
+                                                mode),
+        library=lambda: library_sddmm(curr, nodes, num_nodes, thr, mode),
+        bound=sddmm_bound_ms(B, N, F, mode), tol=0.0)  # bitwise equal
+    got = sddmm_threshold_row(curr, nodes, num_nodes, thr, mode)
+    check(bool(got.any()) and not bool(got.all()),
+          f"sddmm {case} {mode}: a constant mask tests nothing")
+    check(not bool(got[0].any()), f"sddmm {case} {mode}: num_nodes 0 has "
+          "edges")
+    return row
+
+
+SDDMM_CASES = [
+    # (case, B, N, F, mode, threshold, main_path): the served shape with
+    # CosineEdge(0.5) on the raw obs and SpatialEdge(0.25) on a 2-wide pose
+    # slice, a wide and an odd shape
+    ("served cosine", 256, 128, 8, "cosine", 0.5, True),
+    ("served spatial", 256, 128, 2, "euclidean", 0.25, True),
+    ("wide", 64, 512, 128, "cosine", 0.0, False),
+    ("wide", 64, 512, 128, "euclidean", 16.0, False),
+    ("odd", 3, 13, 5, "cosine", 0.2, False),
+    ("odd", 3, 13, 5, "euclidean", 3.0, False),
+]
+
+
+def sddmm_refusal_phase() -> None:
+    """Inputs the score-row kernel does not take raise on the card before
+    any launch."""
+    from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
+
+    curr, nodes, num_nodes = sddmm_inputs(4, 16, 8, seed=97)
+    nodes_t = nodes.transpose(1, 2).contiguous().transpose(1, 2)
+    one = torch.zeros((1, 1), device="cuda")
+    cases = {
+        "float64": lambda: sddmm_threshold_row(
+            curr.double(), nodes.double(), num_nodes, 0.5),
+        "int64_num_nodes": lambda: sddmm_threshold_row(
+            curr, nodes, num_nodes.long(), 0.5),
+        "non_contiguous": lambda: sddmm_threshold_row(curr, nodes_t,
+                                                      num_nodes, 0.5),
+        "wrong_shape": lambda: sddmm_threshold_row(curr[:, :-1], nodes,
+                                                   num_nodes, 0.5),
+        "cpu_num_nodes": lambda: sddmm_threshold_row(curr, nodes,
+                                                     num_nodes.cpu(), 0.5),
+        "batch_65536": lambda: sddmm_threshold_row(
+            torch.zeros((65536, 1), device="cuda"),
+            torch.zeros((65536, 1, 1), device="cuda"),
+            torch.zeros(65536, dtype=torch.int32, device="cuda"), 0.5),
+        "features_65537": lambda: sddmm_threshold_row(
+            torch.zeros((1, 65537), device="cuda"),
+            torch.zeros((1, 1, 65537), device="cuda"),
+            torch.zeros(1, dtype=torch.int32, device="cuda"), 0.5),
+        "empty_graph": lambda: sddmm_threshold_row(
+            one, one[:, :0, None].expand(1, 0, 1).contiguous(),
+            torch.zeros(1, dtype=torch.int32, device="cuda"), 0.5),
+    }
+    launches = sddmm_threshold_row.launches
+    refused = {}
+    for case, call in cases.items():
+        try:
+            call()
+        except ValueError as e:
+            refused[case] = str(e)
+    check(sorted(refused) == sorted(cases),
+          f"inputs not refused: {sorted(set(cases) - set(refused))}")
+    check(sddmm_threshold_row.launches == launches,
+          "a refused input was launched")
+    emit("refuse", **refused)
 
 
 def sparse_refusal_phase() -> None:
@@ -726,6 +859,244 @@ def sparse_phase(card: str, seed: int = 0, B: int = 32, T: int = 128,
     emit("sparse", **row)
 
 
+# -- phase 7: the README DenseGCM with the other dense selectors ---------------
+
+SELECTOR_THRESHOLDS = {"cosine": 0.5, "spatial": 0.25, "euclidean": 1.0,
+                       "recall_chain": 1.0}
+
+
+def selector_model(kind: str, device: str, seed: int = 0):
+    """The README DenseGCM (readme_dense_gcm's weights) with the selector of
+    the repo's benchmark configurations: CosineEdge(0.5), SpatialEdge(0.25)
+    on the pose slice 0:2 and EuclideanEdge(1.0) (bench.py's config 3),
+    LearnedEdge(8, deterministic) (config 5a), DenseEdge, the recall
+    example's EdgeChain([TemporalBackedge([1]), EuclideanEdge(1.0,
+    window=4)]), or the README's TemporalBackedge([1]) for comparison. The
+    same seed gives the same weights on any device."""
+    from gcm_tpu_torch import (CosineEdge, DenseEdge, DenseGCM, EdgeChain,
+                               EuclideanEdge, LearnedEdge, SpatialEdge,
+                               TemporalBackedge, readme_dense_gcm)
+
+    sel = {
+        "cosine": lambda: CosineEdge(max_distance=0.5),
+        "spatial": lambda: SpatialEdge(max_distance=0.25,
+                                       a_pose_slice=slice(0, 2)),
+        "euclidean": lambda: EuclideanEdge(max_distance=1.0),
+        "dense": DenseEdge,
+        "learned": lambda: LearnedEdge(
+            input_size=8, deterministic=True, device=device,
+            generator=torch.Generator().manual_seed(seed + 1)),
+        "recall_chain": lambda: EdgeChain([
+            TemporalBackedge([1]), EuclideanEdge(1.0, window=4)]),
+        "temporal": lambda: TemporalBackedge([1]),
+    }[kind]()
+    base = readme_dense_gcm(obs_size=8, device=device, seed=seed)
+    return DenseGCM(base.gnn, preprocessor=base.preprocessor,
+                    edge_selectors=sel, graph_size=base.graph_size,
+                    device=device)
+
+
+def tick_requests(rng, capacity: int) -> dict:
+    """One tick's requests: each of `capacity` sessions with probability
+    1/2, an observation of 8 standard normal features."""
+    return {f"s{i}": rng.standard_normal(8).astype(np.float32)
+            for i in range(capacity) if rng.random() < 0.5}
+
+
+def serve_selector(kind: str, ticks: int, capacity: int = 256,
+                   seed: int = 0) -> dict:
+    """The served tick with a kernel-scored selector, against a CPU copy:
+    beliefs within TOL_MODEL, the adjacency exactly equal after every tick,
+    one sddmm launch per tick; then a bitwise snapshot/restore."""
+    from gcm_tpu_torch import SessionServer
+    from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
+
+    srv = SessionServer(selector_model(kind, "cuda", seed), capacity, 8)
+    ref = SessionServer(selector_model(kind, "cpu", seed), capacity, 8,
+                        device="cpu")
+    rng = np.random.default_rng(seed + 10)
+    worst, reqs = 0.0, {}
+    for tick in range(ticks):
+        reqs = tick_requests(rng, capacity)
+        sids = list(reqs)
+        if tick % 20 == 19:  # sessions end and come back with fresh memory
+            for sid in sids[:16]:
+                srv.end_session(sid)
+                ref.end_session(sid)
+        before = sddmm_threshold_row.launches
+        out = srv.step(reqs)
+        check(sddmm_threshold_row.launches == before + 1,
+              f"{kind} tick {tick}: {sddmm_threshold_row.launches - before} "
+              "sddmm launches, expected 1")
+        want = ref.step(reqs)
+        for sid in sids:
+            check(bool(np.isfinite(out[sid]).all()), f"{sid}: non-finite")
+            worst = max(worst, float(np.abs(out[sid] - want[sid]).max()))
+        check(torch.equal(srv.state.adj.cpu(), ref.state.adj),
+              f"{kind} tick {tick}: adjacency differs from the CPU copy")
+    check(worst <= TOL_MODEL, f"{kind} served beliefs differ from the CPU "
+          f"copy by {worst} > {TOL_MODEL}")
+    restored = SessionServer(selector_model(kind, "cuda", seed), capacity, 8)
+    restored.restore(srv.snapshot())
+    a, b = srv.step(reqs), restored.step(reqs)
+    check(all(np.array_equal(a[k], b[k]) for k in a),
+          f"{kind}: the restored server differs")
+    return dict(ticks=ticks, capacity=capacity, max_abs_err_vs_cpu=worst,
+                edges_per_row=float(srv.state.adj.sum() / capacity / 128),
+                restored_bitwise=True)
+
+
+def serve_timing(kinds, ticks: int = 100, capacity: int = 256,
+                 seed: int = 0) -> dict:
+    """The served tick of each selector's README DenseGCM alone on the card
+    (no CPU copy between ticks), the servers ticking in turns on the same
+    requests; then a profiled window of each."""
+    from gcm_tpu_torch import SessionServer
+
+    servers = {k: SessionServer(selector_model(k, "cuda", seed), capacity, 8)
+               for k in kinds}
+    rng = np.random.default_rng(seed + 40)
+    step_s = {k: [] for k in kinds}
+    reqs = {}
+    for tick in range(ticks + 10):  # the first 10 ticks warm up
+        reqs = tick_requests(rng, capacity)
+        for k, srv in servers.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.step(reqs)
+            if tick >= 10:
+                step_s[k].append(time.perf_counter() - t0)
+    return {k: dict(ticks=ticks, capacity=capacity,
+                    us_per_tick_median=1e6 * statistics.median(step_s[k]),
+                    ticks_per_s=ticks / sum(step_s[k]),
+                    profile=dict(requests_per_tick=len(reqs), **profile_calls(
+                        lambda srv=srv: srv.step(reqs))))
+            for k, srv in servers.items()}
+
+
+def scan_timing(kinds, B: int, T: int, rounds: int = 2, seed: int = 0):
+    """Timesteps/s of each selector's DenseGCM.scan over [B, T, 8], the
+    kinds in turns, forwards then backwards, `rounds` times."""
+    models = {k: selector_model(k, "cuda", seed) for k in kinds}
+    xs = torch.from_numpy(np.random.default_rng(seed + 50).standard_normal(
+        (B, T, 8)).astype(np.float32)).cuda()
+    order = (list(kinds) + list(kinds)[::-1]) * rounds
+    rates = {k: [] for k in kinds}
+    for k in order:
+        m = models[k]
+        _, secs = timed(lambda: m.scan(xs, m.initial_state(B, 8)))
+        rates[k].append(B * T / secs)
+    return rates
+
+
+def scan_selector(kind: str, B: int, T: int, seed: int = 0) -> dict:
+    """DenseGCM.scan with the selector against the CPU copy: beliefs within
+    TOL_MODEL and the adjacency exactly equal."""
+    from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
+
+    gpu, cpu = selector_model(kind, "cuda", seed), selector_model(kind, "cpu",
+                                                                  seed)
+    xs = torch.from_numpy(np.random.default_rng(seed + 20).standard_normal(
+        (B, T, 8)).astype(np.float32))
+    want, want_state = cpu.scan(xs, cpu.initial_state(B, 8))
+    xs_c = xs.cuda()
+    before = sddmm_threshold_row.launches
+    (got, state), secs = timed(lambda: gpu.scan(xs_c,
+                                                gpu.initial_state(B, 8)))
+    launched = sddmm_threshold_row.launches - before
+    err = float((got.cpu() - want).abs().max())
+    check(bool(torch.isfinite(got).all()), f"{kind} scan: non-finite")
+    check(err <= TOL_MODEL, f"{kind} scan differs from the CPU copy by {err}")
+    check(torch.equal(state.adj.cpu(), want_state.adj)
+          and torch.equal(state.num_nodes.cpu(), want_state.num_nodes),
+          f"{kind} scan: adjacency differs from the CPU copy")
+    return dict(B=B, T=T, max_abs_err_vs_cpu=err, timesteps_per_s=B * T / secs,
+                sddmm_launches=launched,
+                edges_per_row=float(state.adj.sum() / B / 128))
+
+
+def euclidean_score64(nodes, num_nodes):
+    """EuclideanEdge's score (the batch-mean broadcast) in float64 and in
+    the difference form: [B, N]."""
+    x = nodes.double()
+    curr = x[torch.arange(x.shape[0]), num_nodes.long()]
+    d = ((curr[None, :, None, :] - x[:, None, :, :]) ** 2).sum(-1).sqrt()
+    return d.mean(dim=1)
+
+
+def teacher_forced_selector(kind: str, B: int, T: int, obs_scale: float,
+                            seed: int = 0) -> dict:
+    """EuclideanEdge and the recall chain score with the expanded quadratic
+    form of cdist, whose rounding differs between the card and the CPU, so
+    one edge may flip where the score lies within rounding of the
+    threshold and change every later belief. Each step therefore starts on
+    the card from the CPU copy's state: the new adjacency row may differ
+    only on lanes whose float64 score lies within 1e-5 of the threshold
+    (counted), and beliefs of the rows that agree lie within TOL_MODEL."""
+    gpu, cpu = selector_model(kind, "cuda", seed), selector_model(kind, "cpu",
+                                                                  seed)
+    thr = SELECTOR_THRESHOLDS[kind]
+    xs = torch.from_numpy((obs_scale * np.random.default_rng(seed + 30)
+                           .standard_normal((B, T, 8))).astype(np.float32))
+    state = cpu.initial_state(B, 8)
+    worst, near_lanes, flipped, edges = 0.0, 0, 0, 0
+    for step in range(T):
+        want, nxt = cpu(xs[:, step], state)
+        got, got_state = gpu(xs[:, step].cuda(),
+                             type(state)(*(t.cuda() for t in state)))
+        row = nxt.num_nodes.long() - 1
+        b_idx = torch.arange(B)
+        near = (euclidean_score64(nxt.nodes, row) - thr).abs() < 1e-5
+        diff = got_state.adj.cpu() != nxt.adj
+        off_row = diff.clone()
+        off_row[b_idx, row] = False
+        check(not bool(off_row.any()), f"{kind} step {step}: adjacency "
+              "differs off the new row")
+        flips = diff[b_idx, row]
+        check(not bool((flips & ~near).any()), f"{kind} step {step}: an "
+              "edge differs from the CPU copy away from the threshold")
+        same = ~flips.any(dim=1)
+        if bool(same.any()):
+            worst = max(worst, float((got.cpu() - want)[same].abs().max()))
+        near_lanes += int(near.sum())
+        flipped += int(flips.sum())
+        edges += int(nxt.adj[b_idx, row].sum())
+        state = nxt
+    check(worst <= TOL_MODEL, f"{kind} teacher-forced beliefs differ by "
+          f"{worst} > {TOL_MODEL}")
+    check(edges > 0, f"{kind}: no edges were made")
+    return dict(B=B, T=T, obs_scale=obs_scale, teacher_forced=True,
+                max_abs_err_vs_cpu=worst, lanes_near_threshold=near_lanes,
+                lanes_flipped=flipped, edges_made=edges)
+
+
+def selector_phase(card: str, serve_ticks: int = 100, B: int = 32,
+                   T: int = 256, T_small: int = 64):
+    """The README DenseGCM with the dense selectors this slice ports: the
+    kernel-scored CosineEdge and SpatialEdge served and scanned at full
+    depth, the others scanned at a smaller depth."""
+    row = dict(card=card, graph_size=128)
+    with torch.no_grad():
+        for kind in ("cosine", "spatial"):
+            row[f"serve_{kind}"] = serve_selector(kind, serve_ticks)
+            row[f"scan_{kind}"] = scan_selector(kind, B, T)
+            check(row[f"scan_{kind}"]["sddmm_launches"] == T,
+                  f"{kind} scan: {row[f'scan_{kind}']['sddmm_launches']} "
+                  f"sddmm launches, expected {T}")
+        for kind in ("dense", "learned"):
+            row[f"scan_{kind}"] = scan_selector(kind, B, T_small)
+            check(row[f"scan_{kind}"]["sddmm_launches"] == 0,
+                  f"{kind}: the sddmm kernel was launched")
+        # obs scaled so that distances straddle the threshold of 1.0
+        for kind in ("euclidean", "recall_chain"):
+            row[f"teacher_forced_{kind}"] = teacher_forced_selector(
+                kind, B, T_small, obs_scale=0.25)
+        kinds = ("temporal", "cosine", "spatial")
+        row["served_tick_in_turns"] = serve_timing(kinds, serve_ticks)
+        row["scan_timesteps_per_s_in_turns"] = scan_timing(kinds, B, T)
+    emit("selectors", **row)
+
+
 # -- main ---------------------------------------------------------------------
 
 KERNEL_META = {
@@ -741,6 +1112,9 @@ KERNEL_META = {
     "spmm_slots": dict(
         source="gcm_tpu_torch/csrc/spmm_slots.cu",
         replaces="gcm_tpu/ops/pallas/spmm_slots.py:66"),
+    "sddmm_threshold_row": dict(
+        source="gcm_tpu_torch/csrc/sddmm.cu",
+        replaces="gcm_tpu/ops/pallas/sddmm.py:63"),
 }
 
 
@@ -762,6 +1136,7 @@ def main() -> int:
     from gcm_tpu_torch.ops import _build
     from gcm_tpu_torch.ops.cuda.dense_gconv import fused_dense_graph_conv
     from gcm_tpu_torch.ops.cuda.fused_gnn import fused_dense_gnn
+    from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
     from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
     from gcm_tpu_torch.ops.cuda.spmm_slots import spmm_slots
 
@@ -779,20 +1154,32 @@ def main() -> int:
              for i, case in enumerate(SPMM_CASES)]
     rows += [slots_case(*case[:6], seed=i, main_path=case[6])
              for i, case in enumerate(SLOTS_CASES)]
+    rows += [sddmm_case(*case[:6], seed=i, main_path=case[6])
+             for i, case in enumerate(SDDMM_CASES)]
     refusal_phase()
     sparse_refusal_phase()
+    sddmm_refusal_phase()
 
     wrappers = {"fused_dense_gnn": fused_dense_gnn,
                 "fused_dense_graph_conv": fused_dense_graph_conv,
-                "spmm_edge_list": spmm_edge_list, "spmm_slots": spmm_slots}
-    for fn in wrappers.values():
-        fn.launches = 0
-    serve_phase(card)
-    scan_phase(card)
-    sparse_phase(card)
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    for k, n in launches.items():
-        check(n > 0, f"{k} was not launched on the main path")
+                "spmm_edge_list": spmm_edge_list, "spmm_slots": spmm_slots,
+                "sddmm_threshold_row": sddmm_threshold_row}
+    paths = [  # (phase, the kernels its path launches)
+        (serve_phase, ("fused_dense_gnn",)),
+        (scan_phase, ("fused_dense_gnn", "fused_dense_graph_conv")),
+        (sparse_phase, ("spmm_edge_list", "spmm_slots")),
+        (selector_phase, ("fused_dense_gnn", "sddmm_threshold_row")),
+    ]
+    launches = dict.fromkeys(wrappers, 0)
+    for phase, kernels in paths:
+        for fn in wrappers.values():
+            fn.launches = 0
+        phase(card)
+        for k, fn in wrappers.items():
+            launches[k] += fn.launches
+        for k in kernels:
+            check(wrappers[k].launches > 0,
+                  f"{k} was not launched on the {phase.__name__} path")
 
     kernels = []
     for k, meta in KERNEL_META.items():

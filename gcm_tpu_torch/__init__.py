@@ -1,6 +1,6 @@
 """gcm_tpu_torch: the PyTorch / CUDA port of gcm_tpu for one NVIDIA H100.
 
-Plain tensor code is PyTorch; the graph-conv and SpMM kernels are
+Plain tensor code is PyTorch; the graph-conv, SpMM and score-row kernels are
 hand-written CUDA for sm_90a (csrc/), built with nvcc into `_build/` at first use. Entry
 points run on the CUDA card unless given device="cpu", where every kernel
 takes its plain PyTorch version. This package imports neither JAX nor
@@ -12,18 +12,27 @@ from gcm_tpu_torch.core.graph_state import (DenseGraphState,
                                             dense_initial_state, reset_where,
                                             sparse_initial_state)
 from gcm_tpu_torch.device import resolve_device
+from gcm_tpu_torch.edges.chain import EdgeChain
+from gcm_tpu_torch.edges.dense import DenseEdge
+from gcm_tpu_torch.edges.distance import (CosineEdge, Distance, EuclideanEdge,
+                                          SpatialEdge)
+from gcm_tpu_torch.edges.learned import LearnedEdge, default_edge_network
 from gcm_tpu_torch.edges.sparse_temporal import TemporalEdge
 from gcm_tpu_torch.edges.temporal import TemporalBackedge
 from gcm_tpu_torch.models.converters import dense_to_sparse, sparse_to_dense
-from gcm_tpu_torch.models.dense_gcm import DenseGCM
+from gcm_tpu_torch.models.dense_gcm import DenseGCM, dense_fused_supported
+from gcm_tpu_torch.models.positional import (PositionalEncoding,
+                                             RelativePositionalEncoding,
+                                             sincos_table)
 from gcm_tpu_torch.models.presets import readme_dense_gcm, readme_sparse_gcm
 from gcm_tpu_torch.models.sparse_gcm import SparseGCM
 from gcm_tpu_torch.nn.dense_conv import DenseGNN, DenseGraphConv
-from gcm_tpu_torch.nn.module import MLP, Linear
+from gcm_tpu_torch.nn.module import MLP, LayerNorm, Linear
 from gcm_tpu_torch.nn.sparse_conv import GCNConv, GraphConv, SparseGNN
 from gcm_tpu_torch.ops.coalesce import coalesce_edges
 from gcm_tpu_torch.ops.cuda.dense_gconv import fused_dense_graph_conv
 from gcm_tpu_torch.ops.cuda.fused_gnn import fused_dense_gnn
+from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
 from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
 from gcm_tpu_torch.ops.cuda.spmm_slots import (bucket_sink_slots,
                                                check_slot_overflow, spmm_slots)
@@ -34,13 +43,17 @@ from gcm_tpu_torch.weights import (load_jax_params, sparse_state_from_numpy,
                                    state_to_numpy)
 
 __all__ = [
-    "DenseGCM", "DenseGNN", "DenseGraphConv", "DenseGraphState", "GCNConv",
-    "GraphConv", "Linear", "MLP", "SessionServer", "SparseGCM", "SparseGNN",
-    "SparseGraphState", "TemporalBackedge", "TemporalEdge",
-    "bucket_sink_slots", "check_slot_overflow", "coalesce_edges",
-    "dense_initial_state", "dense_to_sparse", "fused_dense_gnn",
-    "fused_dense_graph_conv", "load_jax_params", "pack_hidden",
-    "readme_dense_gcm", "readme_sparse_gcm", "reset_where", "resolve_device",
+    "CosineEdge", "DenseEdge", "DenseGCM", "DenseGNN", "DenseGraphConv",
+    "DenseGraphState", "Distance", "EdgeChain", "EuclideanEdge", "GCNConv",
+    "GraphConv", "LayerNorm", "LearnedEdge", "Linear", "MLP",
+    "PositionalEncoding", "RelativePositionalEncoding", "SessionServer",
+    "SparseGCM", "SparseGNN", "SparseGraphState", "SpatialEdge",
+    "TemporalBackedge", "TemporalEdge", "bucket_sink_slots",
+    "check_slot_overflow", "coalesce_edges", "default_edge_network",
+    "dense_fused_supported", "dense_initial_state", "dense_to_sparse",
+    "fused_dense_gnn", "fused_dense_graph_conv", "load_jax_params",
+    "pack_hidden", "readme_dense_gcm", "readme_sparse_gcm", "reset_where",
+    "resolve_device", "sddmm_threshold_row", "sincos_table",
     "sparse_initial_state", "sparse_state_from_numpy",
     "sparse_state_to_numpy", "sparse_to_dense", "spmm_edge_list",
     "spmm_slots", "state_from_numpy", "state_to_numpy", "unpack_hidden",

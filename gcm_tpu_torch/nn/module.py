@@ -1,4 +1,4 @@
-"""Linear and MLP (counterpart of gcm_tpu/nn/module.py).
+"""Linear, LayerNorm and MLP (counterpart of gcm_tpu/nn/module.py).
 
 `Linear` keeps the JAX package's layout, y = x @ kernel + bias with `kernel`
 stored [in, out], so JAX parameters load without a transpose and the graph
@@ -50,6 +50,26 @@ class Linear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x @ self.kernel
         return y if self.bias is None else y + self.bias
+
+
+class LayerNorm(nn.Module):
+    """torch.nn.LayerNorm over the last dim, with the JAX package's
+    parameter names (`scale`, `bias`) and its arithmetic: (x - mean) *
+    rsqrt(var + eps) * scale + bias, var the population variance."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, *, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.dim = dim
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=-1, keepdim=True)
+        var = x.var(dim=-1, keepdim=True, unbiased=False)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        return y * self.scale + self.bias
 
 
 class MLP(nn.Module):

@@ -3,7 +3,10 @@
 `load_jax_params(model, params)` takes the JAX package's parameter tree with
 numpy (or any array-like) leaves, e.g. for a DenseGCM or a SparseGCM
 {"gnn": [...], "preprocessor": [...], "edge_selectors": {}}, and copies it
-into the port's modules. Both sides store linear kernels [in, out], so
+into the port's modules: layers, edge selectors (a learned distance's
+`dist_param`, a learned TemporalBackedge's `window`, a LearnedEdge's
+`edge_network`, an EdgeChain's list) and positional encoders (`pe`,
+`reproject`). Both sides store linear kernels [in, out], so
 nothing is transposed. DenseGraphConv and GraphConv share one layout, so one
 tree loads into the README's dense and sparse models alike.
 
@@ -17,12 +20,18 @@ import numpy as np
 import torch
 
 from gcm_tpu_torch.core.graph_state import DenseGraphState, SparseGraphState
+from gcm_tpu_torch.edges.chain import EdgeChain
+from gcm_tpu_torch.edges.dense import DenseEdge
+from gcm_tpu_torch.edges.distance import Distance
+from gcm_tpu_torch.edges.learned import LearnedEdge
 from gcm_tpu_torch.edges.sparse_temporal import TemporalEdge
 from gcm_tpu_torch.edges.temporal import TemporalBackedge
 from gcm_tpu_torch.models.dense_gcm import DenseGCM
+from gcm_tpu_torch.models.positional import (PositionalEncoding,
+                                             RelativePositionalEncoding)
 from gcm_tpu_torch.models.sparse_gcm import SparseGCM
 from gcm_tpu_torch.nn.dense_conv import DenseGNN, DenseGraphConv
-from gcm_tpu_torch.nn.module import MLP, Linear
+from gcm_tpu_torch.nn.module import MLP, LayerNorm, Linear
 from gcm_tpu_torch.nn.sparse_conv import GCNConv, GraphConv, SparseGNN
 
 
@@ -54,14 +63,34 @@ def load_jax_params(module, params) -> None:
         for layer, p in zip(module.layers, params):
             if isinstance(layer, torch.nn.Module) and p:
                 load_jax_params(layer, p)
+    elif isinstance(module, LayerNorm):
+        _copy(module.scale, params["scale"])
+        _copy(module.bias, params["bias"])
     elif isinstance(module, (DenseGCM, SparseGCM)):
         load_jax_params(module.gnn, params["gnn"])
-        if module.preprocessor is not None:
-            load_jax_params(module.preprocessor, params["preprocessor"])
-        if module.edge_selectors is not None:
-            load_jax_params(module.edge_selectors,
-                            params.get("edge_selectors", {}))
-    elif isinstance(module, (TemporalBackedge, TemporalEdge)):
+        for name in ("preprocessor", "edge_selectors", "aux_edge_selectors",
+                     "positional_encoder"):
+            sub = getattr(module, name, None)
+            if sub is not None:
+                load_jax_params(sub, params.get(name, {}))
+    elif isinstance(module, EdgeChain):
+        if len(params) != len(module.selectors):
+            raise ValueError(f"{len(params)} parameter entries for "
+                             f"{len(module.selectors)} selectors")
+        for sel, p in zip(module.selectors, params):
+            load_jax_params(sel, p)
+    elif isinstance(module, LearnedEdge):
+        load_jax_params(module.edge_network, params["edge_network"])
+    elif isinstance(module, Distance) and module.learned:
+        _copy(module.dist_param, params["dist_param"])
+    elif isinstance(module, TemporalBackedge) and module.learned:
+        _copy(module.window, params["window"])
+    elif isinstance(module, (PositionalEncoding, RelativePositionalEncoding)):
+        _copy(module.pe, params["pe"])
+        if getattr(module, "reproject", None) is not None:
+            load_jax_params(module.reproject, params["reproject"])
+    elif isinstance(module, (TemporalBackedge, TemporalEdge, DenseEdge,
+                             Distance)):
         if params:
             raise ValueError(f"{type(module).__name__} has no parameters to "
                              "load")

@@ -61,9 +61,21 @@ def _cpu_model():
     lambda: g.GCNConv(4, 4),
     lambda: g.SparseGCM(g.SparseGNN([g.GraphConv(4, 4, device="cpu")]),
                         edge_selectors=g.TemporalEdge([1])),
+    lambda: g.LayerNorm(4),
+    lambda: g.LearnedEdge(4),
+    lambda: g.CosineEdge(0.5, learned=True),
+    lambda: g.SpatialEdge(0.5, slice(0, 2), learned=True),
+    lambda: g.TemporalBackedge(learned=True),
+    lambda: g.PositionalEncoding(feat_dim=4),
+    lambda: g.RelativePositionalEncoding(feat_dim=4),
+    lambda: g.DenseGCM(g.DenseGNN([g.DenseGraphConv(4, 4, device="cpu")]),
+                       edge_selectors=g.CosineEdge(0.5)),
 ], ids=["readme_dense_gcm", "Linear", "DenseGraphConv", "DenseGCM",
         "SessionServer", "resolve_device", "readme_sparse_gcm", "GraphConv",
-        "GCNConv", "SparseGCM"])
+        "GCNConv", "SparseGCM", "LayerNorm", "LearnedEdge",
+        "CosineEdge_learned", "SpatialEdge_learned",
+        "TemporalBackedge_learned", "PositionalEncoding",
+        "RelativePositionalEncoding", "DenseGCM_cosine"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")

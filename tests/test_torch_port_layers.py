@@ -153,14 +153,31 @@ def test_temporal_backedge_directions_match_jax(monkeypatch, direction,
 
 
 def _fused_step_with_other_selector(m):
+    """The fused step itself takes only the selectors it has a form for
+    (forward() runs other selectors in the unfused step)."""
     model = DenseGCM(m.gnn, preprocessor=m.preprocessor,
                      edge_selectors=lambda nodes, adj, w, n: (adj, w),
                      graph_size=N, device="cpu")
-    model(torch.zeros(1, 8), model.initial_state(1, 8))
+    model._call_fused(torch.zeros(1, 8), model.initial_state(1, 8))
+
+
+def _training_through_learned_edges(m):
+    """Learned edges run forward only: with gradients on, the graph-conv
+    kernels refuse the adjacency they produce (the model's other
+    parameters are frozen, so only that adjacency carries a gradient)."""
+    from gcm_tpu_torch import LearnedEdge
+
+    m.requires_grad_(False)
+    model = DenseGCM(m.gnn, preprocessor=m.preprocessor,
+                     edge_selectors=LearnedEdge(8, deterministic=True,
+                                                device="cpu"),
+                     graph_size=N, device="cpu")
+    with torch.enable_grad():
+        model(torch.zeros(1, 8), model.initial_state(1, 8))
 
 
 @pytest.mark.parametrize("make", [
-    lambda m: TemporalBackedge(learned=True),
+    _training_through_learned_edges,
     lambda m: m.scan(torch.zeros(1, 2, 8), m.initial_state(1, 8),
                      remat=True),
     lambda m: m.scan(torch.zeros(1, 2, 8), m.initial_state(1, 8), unroll=4),
