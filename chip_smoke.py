@@ -37,11 +37,25 @@ Phases, one JSON line each:
    only where the float64 score lies within 1e-5 of the threshold); then,
    timed alone and in turns with the README's temporal selector, 100
    served ticks with a profiled window each and two rounds of scans.
-Phase 3 also holds spmm_edge_list and spmm_slots against their plain
-versions (1e-5) beside one torch.sparse.mm call on a block-diagonal COO
-matrix of the same edges, sddmm_threshold_row bitwise against its plain
-version beside a bmm + norms + compare chain, and checks their refusals.
-Phases 4-7 each run with every launch count set to 0 just before and
+8. sweep: the SpMM variant sweep (gcm_tpu_torch/benchmarks/spmm_variants.py)
+   at its full width, B=64, N=512, E=8192, F=128: every row checked against
+   the plain scatter (1e-3; 0.5 for bf16) and timed in edges/s, through
+   spmm_edge_list, spmm_onehot_dtype, spmm_pairs, spmm_seg and
+   spmm_prefetch.
+Phase 3 also holds spmm_edge_list (bitwise: kernel and plain version add
+in lane order) and spmm_slots (1e-5) against their plain versions beside
+one torch.sparse.mm call on a block-diagonal COO matrix of the same edges,
+sddmm_threshold_row bitwise against its plain version beside a bmm + norms
++ compare chain, and the variant kernels spmm_pairs (f32x2, bf16),
+spmm_seg, spmm_prefetch and spmm_onehot_dtype (f32, bf16) bitwise against
+theirs (which add in the kernels' order) at the sweep's point, at odd
+shapes with
+sentinels and out-of-range indices, a segment spanning two chunks,
+benchmarks/drive_r5c.py's shape and empty edge lists, beside the same
+torch.sparse.mm; it checks every kernel's refusals, and runs spmm_pairs
+and spmm_seg forward and backward against autograd through their plain
+versions (dx and dw within 1e-4, exact launch counts).
+Phases 4-8 each run with every launch count set to 0 just before and
 read just after; each must launch the kernels of its path.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero and prints no result.
@@ -324,19 +338,21 @@ def spmm_inputs(case, B, N, F, E, seed):
     return x, edges, w
 
 
-def block_diagonal_coo(edges, w, N):
-    """The valid lanes of a [B,2,E] edge list as one coalesced sparse COO
-    matrix [B*N, B*N] (sink row, source column), for torch.sparse.mm."""
+def lanes_per_sink(edges, N):
+    """The most lanes of a [B,2,E] edge list that share a sink in 0..N-1:
+    no spmm variant adds more lanes into one row, so its plain version,
+    given this depth, sums in lane order without the host wait of finding
+    its own (ops/scatter.py::in_order_slots) and is timed on the device."""
     B = edges.shape[0]
-    sink, src = edges[:, 0].long(), edges[:, 1].long()
-    ok = (sink >= 0) & (sink < N) & (src >= 0) & (src < N)
-    off = (torch.arange(B, device=edges.device) * N)[:, None]
-    idx = torch.stack([(sink + off)[ok], (src + off)[ok]])
-    with torch.sparse.check_sparse_tensor_invariants():
-        return torch.sparse_coo_tensor(idx, w[ok], (B * N, B * N)).coalesce()
+    sink = edges[:, 0].long()
+    ok = (sink >= 0) & (sink < N)
+    key = torch.where(ok, sink + N * torch.arange(B, device=sink.device)[
+        :, None], B * N)
+    return int(torch.bincount(key.flatten(), minlength=B * N + 1)[:-1].max())
 
 
 def spmm_case(case, B, N, F, E, seed, main_path):
+    from gcm_tpu_torch.benchmarks.spmm_variants import block_diagonal_coo
     from gcm_tpu_torch.ops.cuda.spmm import (spmm_edge_list,
                                              spmm_edge_list_plain)
 
@@ -346,18 +362,21 @@ def spmm_case(case, B, N, F, E, seed, main_path):
     x2 = x.reshape(B * N, F)
     # the operations this run's data needs: its valid lanes
     n_valid = int(coo.values().numel())
+    depth = lanes_per_sink(edges, N)
     row = kernel_row(
         "spmm_edge_list", dict(case=case, B=B, N=N, F=F, E=E), main_path,
         kernel=lambda: spmm_edge_list(x, edges, w),
-        plain=lambda: spmm_edge_list_plain(x, edges, w),
+        plain=lambda: spmm_edge_list_plain(x, edges, w, depth),
         library=lambda: torch.sparse.mm(coo, x2).reshape(B, N, F),
-        bound=bound_ms(4 * B * (2 * N * F + 3 * E), 2 * n_valid * F))
+        bound=bound_ms(4 * B * (2 * N * F + 3 * E), 2 * n_valid * F),
+        tol=0.0)  # bitwise: both add in lane order
     if case == "empty":
         check(not bool(row["max_abs_err"]), "empty edge list: not zero")
     return row
 
 
 def slots_case(case, B, N, F, k, hops, seed, main_path):
+    from gcm_tpu_torch.benchmarks.spmm_variants import block_diagonal_coo
     from gcm_tpu_torch.ops.cuda.spmm_slots import (
         W, bucket_sink_slots, check_slot_overflow, spmm_slots,
         spmm_slots_plain)
@@ -1097,6 +1116,259 @@ def selector_phase(card: str, serve_ticks: int = 100, B: int = 32,
     emit("selectors", **row)
 
 
+# -- phase 8: the SpMM variants and their sweep --------------------------------
+
+def variant_inputs(case, B, N, F, E, seed):
+    """x, edges, weights on the card for a variant case: spmm_inputs', and
+    for "chunk spanning" 200 edges into sink 7 (two 128-lane chunks of its
+    bucket) before the random ones."""
+    x, edges, w = spmm_inputs("odd" if case == "odd" else
+                              "empty" if case == "empty" else "wide",
+                              B, N, F, E, seed)
+    if case == "chunk spanning":
+        edges[:, 0, :200] = 7
+        edges[:, 1, :200] = np.arange(200) % N
+    return (torch.from_numpy(a).cuda() for a in (x, edges, w))
+
+
+def variant_case(kernel, case, B, N, F, E, mode, seed, main_path):
+    """One kernel row of the SpMM variants: the kernel against its plain
+    version, beside torch.sparse.mm on the block-diagonal COO of the same
+    edges. mode: the pair kernel's precision, the one-hot kernel's dtype
+    ("f32" or "bf16") or the per-edge kernel's n_blocks."""
+    from gcm_tpu_torch.benchmarks.spmm_variants import (block_diagonal_coo,
+                                                        pair_cap)
+    from gcm_tpu_torch.ops.cuda import spmm as spmm_mod
+    from gcm_tpu_torch.ops.cuda import spmm2, spmm_prefetch, spmm_seg
+
+    x, edges, w = variant_inputs(case, B, N, F, E, seed)
+    coo = block_diagonal_coo(edges, w, N)
+    n_valid = int(coo.values().numel())
+    depth = lanes_per_sink(edges, N)
+    shape = dict(case=case, B=B, N=N, F=F, E=E, mode=mode)
+    xy = 2 * B * N * F  # x read once, out written once
+    if kernel == "spmm_pairs":
+        cap = pair_cap(N, E)
+        be, bw, counts = spmm2.bucket_edges_pairs(edges, w, N, cap)
+        spmm2.check_bucket_overflow(counts, cap)
+        shape["cap"] = cap
+        run = (lambda: spmm2.spmm_pairs(x, be, bw, N, cap, mode),
+               lambda: spmm2.spmm_pairs_plain(x, be, bw, cap, mode, depth))
+        nbytes = 4 * (xy + 3 * be.shape[0] * be.shape[2])
+    elif kernel == "spmm_seg":
+        cap = pair_cap(N, E)
+        be, bw, begin, end, tot = spmm_seg.bucket_edges_segments(edges, w, N,
+                                                                 cap)
+        spmm2.check_bucket_overflow(tot, cap)
+        shape["cap"] = cap
+        # the kernel walks each sink's table segments, which a sink of N or
+        # more spills into the next lanes' (as in JAX): the longest walk
+        lens = (end.clamp(max=128) - begin.clamp(min=0)).clamp(min=0)
+        depth = int(lens.reshape(B, N // 128, -1, 128).sum(2).max())
+        run = (lambda: spmm_seg.spmm_seg(x, be, bw, begin, end, N, cap),
+               lambda: spmm_seg.spmm_seg_plain(x, be, bw, begin, end, cap,
+                                               depth))
+        nbytes = 4 * (xy + 3 * be.shape[0] * be.shape[2] + 2 * begin.numel())
+    elif kernel == "spmm_prefetch":
+        # 2E/nblk slots a block, as the sweep; elsewhere lossless (K = E)
+        cap = 2 * E // mode if case == "sweep" else None
+        sl, src, pw, dropped = spmm_prefetch.bucket_edges_sink_blocks(
+            edges, w, N, mode, cap)
+        check(not int(dropped.max()), f"prefetch {case}: edges dropped")
+        shape["K"] = sl.shape[2]
+        run = (lambda: spmm_prefetch.spmm_prefetch_bucketed(x, sl, src, pw,
+                                                            N),
+               lambda: spmm_prefetch.spmm_prefetch_plain(x, sl, src, pw, N,
+                                                         depth))
+        nbytes = 4 * (xy + 3 * sl.numel())
+    else:
+        dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+        run = (lambda: spmm_mod.spmm_onehot_dtype(x, edges, w, dtype),
+               lambda: spmm_mod.spmm_onehot_dtype_plain(x, edges, w, dtype,
+                                                        depth))
+        nbytes = 4 * (xy + 3 * B * E)
+    x2 = x.reshape(B * N, F)
+    with torch.no_grad():
+        row = kernel_row(
+            kernel, shape, main_path, *run,
+            library=lambda: torch.sparse.mm(coo, x2).reshape(B, N, F),
+            bound=bound_ms(nbytes, 2 * n_valid * F),
+            tol=0.0)  # bitwise: both add in the same order
+    if case == "empty":
+        check(not bool(run[0]().any()), f"{kernel} empty edge list: not zero")
+    return row
+
+
+VARIANT_CASES = [
+    # (kernel, case, B, N, F, E, mode, main_path): the sweep's point, odd
+    # shapes with sentinels and indices of N or more (defined for all four:
+    # dropped or clamped, see each module), and empty edge lists
+    ("spmm_pairs", "sweep", 64, 512, 128, 8192, "f32x2", True),
+    ("spmm_pairs", "sweep", 64, 512, 128, 8192, "bf16", True),
+    ("spmm_pairs", "odd", 3, 256, 13, 600, "f32x2", False),
+    ("spmm_pairs", "odd", 3, 256, 13, 600, "bf16", False),
+    ("spmm_pairs", "empty", 4, 128, 32, 64, "f32x2", False),
+    ("spmm_seg", "sweep", 64, 512, 128, 8192, None, True),
+    ("spmm_seg", "odd", 3, 256, 13, 600, None, False),
+    ("spmm_seg", "chunk spanning", 2, 128, 32, 300, None, False),
+    ("spmm_seg", "empty", 4, 128, 32, 64, None, False),
+    ("spmm_prefetch", "sweep", 64, 512, 128, 8192, 4, True),
+    ("spmm_prefetch", "sweep", 64, 512, 128, 8192, 8, True),
+    ("spmm_prefetch", "drive_r5c", 4, 32, 128, 64, 4, False),
+    ("spmm_prefetch", "one block", 2, 512, 64, 2048, 1, False),
+    ("spmm_prefetch", "odd", 3, 96, 13, 37, 3, False),
+    ("spmm_prefetch", "empty", 4, 128, 32, 64, 4, False),
+    ("spmm_onehot_dtype", "sweep", 64, 512, 128, 8192, "f32", True),
+    ("spmm_onehot_dtype", "sweep", 64, 512, 128, 8192, "bf16", True),
+    ("spmm_onehot_dtype", "odd", 3, 12, 13, 37, "f32", False),
+    ("spmm_onehot_dtype", "odd", 3, 12, 13, 37, "bf16", False),
+    ("spmm_onehot_dtype", "empty", 4, 128, 32, 64, "bf16", False),
+]
+
+
+def variant_refusal_phase() -> None:
+    """Inputs the variant kernels do not take raise on the card before any
+    launch: float64, int64 indices, wrong shapes, non-contiguous or CPU
+    tensors, a graph or cap off the 128 grid, too many rows per sink block,
+    an unknown dtype, and a tracked input into the forward-only kernel."""
+    from gcm_tpu_torch.ops.cuda import spmm as spmm_mod
+    from gcm_tpu_torch.ops.cuda import spmm2, spmm_prefetch, spmm_seg
+
+    x, edges, w = variant_inputs("wide", 2, 256, 8, 64, seed=96)
+    be, bw, _ = spmm2.bucket_edges_pairs(edges, w, 256, 128)
+    se = spmm_seg.bucket_edges_segments(edges, w, 256, 128)[:4]
+    sl, src, pw, _ = spmm_prefetch.bucket_edges_sink_blocks(edges, w, 256, 4)
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)  # same shape, strided
+    x100 = x[:, :100].contiguous()
+    pairs, seg = spmm2.spmm_pairs, spmm_seg.spmm_seg
+    bucketed = spmm_prefetch.spmm_prefetch_bucketed
+    onehot = spmm_mod.spmm_onehot_dtype
+    cases = {
+        "pairs_float64": lambda: pairs(x.double(), be, bw.double(), 256, 128),
+        "pairs_int64_edges": lambda: pairs(x, be.long(), bw, 256, 128),
+        "pairs_wrong_shape": lambda: pairs(x, be, bw[:, :-1], 256, 128),
+        "pairs_non_contiguous": lambda: pairs(xt, be, bw, 256, 128),
+        "pairs_cpu_weights": lambda: pairs(x, be, bw.cpu(), 256, 128),
+        "pairs_nodes_100": lambda: pairs(x100, be, bw, 100, 128),
+        "pairs_cap_192": lambda: pairs(x, be[..., :768], bw[..., :768], 256,
+                                       192),
+        "pairs_precision": lambda: pairs(x, be, bw, 256, 128, "highest"),
+        "seg_float64": lambda: seg(x.double(), se[0], se[1].double(),
+                                   *se[2:], 256, 128),
+        "seg_int64_tables": lambda: seg(x, *se[:2], se[2].long(), se[3], 256,
+                                        128),
+        "seg_wrong_shape": lambda: seg(x, *se[:3], se[3][:, :, :, :64], 256,
+                                       128),
+        "seg_non_contiguous": lambda: seg(xt, *se, 256, 128),
+        "seg_cap_192": lambda: seg(x, *se, 256, 192),
+        "prefetch_float64": lambda: bucketed(x.double(), sl, src,
+                                             pw.double(), 256),
+        "prefetch_int64_src": lambda: bucketed(x, sl, src.long(), pw, 256),
+        "prefetch_wrong_shape": lambda: bucketed(x, sl, src, pw[..., :-1],
+                                                 256),
+        "prefetch_non_contiguous": lambda: bucketed(xt, sl, src, pw, 256),
+        "prefetch_rows_per_block": lambda: bucketed(
+            torch.zeros((1, 1024, 8), device="cuda"),
+            torch.zeros((1, 1, 4), dtype=torch.int32, device="cuda"),
+            torch.zeros((1, 1, 4), dtype=torch.int32, device="cuda"),
+            torch.zeros((1, 1, 4), device="cuda"), 1024),
+        "prefetch_requires_grad": lambda: spmm_prefetch.spmm_prefetch(
+            x.clone().requires_grad_(), edges, w),
+        "onehot_float64": lambda: onehot(x.double(), edges, w.double(),
+                                         torch.bfloat16),
+        "onehot_int64_edges": lambda: onehot(x, edges.long(), w,
+                                             torch.bfloat16),
+        "onehot_non_contiguous": lambda: onehot(xt, edges, w, torch.bfloat16),
+        "onehot_float16": lambda: onehot(x, edges, w, torch.float16),
+    }
+    wrappers = (pairs, seg, spmm_prefetch.spmm_prefetch, onehot,
+                spmm_mod.spmm_edge_list)
+    launches = [f.launches for f in wrappers]
+    refused = {}
+    for case, call in cases.items():
+        try:
+            call()
+        except (ValueError, NotImplementedError) as e:
+            refused[case] = str(e)
+    check(sorted(refused) == sorted(cases),
+          f"inputs not refused: {sorted(set(cases) - set(refused))}")
+    check([f.launches for f in wrappers] == launches,
+          "a refused input was launched")
+    check("no_grad" in refused["prefetch_requires_grad"],
+          "a tracked input into spmm_prefetch was not refused as such")
+    emit("refuse", **refused)
+
+
+def gradient_phase(B=64, N=512, F=128, E=8192, seed=95) -> None:
+    """spmm_pairs and spmm_seg forward and backward on the card against
+    autograd through their plain versions on the card: out within
+    TOL_KERNEL, dx and dw within TOL_MODEL; one forward and backward
+    launches exactly two spmm_pairs, or one spmm_seg and one
+    spmm_edge_list."""
+    from gcm_tpu_torch.benchmarks.spmm_variants import pair_cap
+    from gcm_tpu_torch.ops.cuda import spmm as spmm_mod
+    from gcm_tpu_torch.ops.cuda import spmm2, spmm_seg
+
+    x, edges, w = variant_inputs("wide", B, N, F, E, seed)
+    cot = torch.randn((B, N, F), generator=torch.Generator().manual_seed(
+        seed)).cuda()
+    cap = pair_cap(N, E)
+    be, bw, counts = spmm2.bucket_edges_pairs(edges, w, N, cap)
+    se = spmm_seg.bucket_edges_segments(edges, w, N, cap)
+    spmm2.check_bucket_overflow(counts, cap)
+    cases = {
+        "spmm_pairs": (bw, lambda a, b: spmm2.spmm_pairs(a, be, b, N, cap),
+                       lambda a, b: spmm2.spmm_pairs_plain(a, be, b, cap),
+                       {spmm2.spmm_pairs: 2}),
+        "spmm_seg": (se[1],
+                     lambda a, b: spmm_seg.spmm_seg(a, se[0], b, *se[2:4], N,
+                                                    cap),
+                     lambda a, b: spmm_seg.spmm_seg_plain(a, se[0], b,
+                                                          *se[2:4], cap),
+                     {spmm_seg.spmm_seg: 1, spmm_mod.spmm_edge_list: 1}),
+    }
+    row = dict(B=B, N=N, F=F, E=E, cap=cap)
+    every = (spmm2.spmm_pairs, spmm_seg.spmm_seg, spmm_mod.spmm_edge_list)
+    for name, (weights, fn, plain, want_launches) in cases.items():
+        grads = []
+        for f in (fn, plain):
+            a = x.clone().requires_grad_()
+            b = weights.clone().requires_grad_()
+            before = [g.launches for g in every]
+            out = f(a, b)
+            (out * cot).sum().backward()
+            torch.cuda.synchronize()
+            launched = {g: g.launches - n for g, n in zip(every, before)}
+            grads.append((out.detach(), a.grad, b.grad, launched))
+        (out, dx, dw, launched), (p_out, p_dx, p_dw, p_launched) = grads
+        counts = {g.__name__: n for g, n in launched.items()}
+        check(launched == {g: want_launches.get(g, 0) for g in every},
+              f"{name}: launches per forward and backward {counts}")
+        check(not any(p_launched.values()), f"{name}: the plain version "
+              "launched a kernel")
+        errs = {k: float((u - v).abs().max()) for k, u, v in (
+            ("out", out, p_out), ("dx", dx, p_dx), ("dw", dw, p_dw))}
+        check(errs["out"] <= TOL_KERNEL and errs["dx"] <= TOL_MODEL
+              and errs["dw"] <= TOL_MODEL, f"{name} gradients: {errs}")
+        check(float(dw.abs().sum()) > 0, f"{name}: dw is zero")
+        row[name] = dict(max_abs_err=errs, launches=counts)
+    emit("gradients", **row)
+
+
+def sweep_phase(card: str) -> None:
+    """The SpMM variant sweep at its full width (B=64, N=512, E=8192,
+    F=128), every row within its check."""
+    from gcm_tpu_torch.benchmarks.spmm_variants import run_sweep
+
+    out = run_sweep()
+    errors = {k: r["error"] for k, r in out["results"].items()
+              if "error" in r and r["kernel"]}
+    check(not errors, f"sweep rows failed: {errors}")
+    check(len(out["results"]) == 12, "the sweep ran "
+          f"{len(out['results'])} rows, expected 12")
+    emit("sweep", card=card, **out)
+
+
 # -- main ---------------------------------------------------------------------
 
 KERNEL_META = {
@@ -1115,6 +1387,18 @@ KERNEL_META = {
     "sddmm_threshold_row": dict(
         source="gcm_tpu_torch/csrc/sddmm.cu",
         replaces="gcm_tpu/ops/pallas/sddmm.py:63"),
+    "spmm_pairs": dict(
+        source="gcm_tpu_torch/csrc/spmm_pairs.cu",
+        replaces="gcm_tpu/ops/pallas/spmm2.py:118"),
+    "spmm_seg": dict(
+        source="gcm_tpu_torch/csrc/spmm_seg.cu",
+        replaces="gcm_tpu/ops/pallas/spmm_seg.py:97"),
+    "spmm_prefetch": dict(
+        source="gcm_tpu_torch/csrc/spmm_prefetch.cu",
+        replaces="gcm_tpu/ops/pallas/spmm_prefetch.py:95"),
+    "spmm_onehot_dtype": dict(
+        source="gcm_tpu_torch/csrc/spmm.cu",
+        replaces="benchmarks/spmm_variants.py:177"),
 }
 
 
@@ -1137,7 +1421,10 @@ def main() -> int:
     from gcm_tpu_torch.ops.cuda.dense_gconv import fused_dense_graph_conv
     from gcm_tpu_torch.ops.cuda.fused_gnn import fused_dense_gnn
     from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
-    from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
+    from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list, spmm_onehot_dtype
+    from gcm_tpu_torch.ops.cuda.spmm2 import spmm_pairs
+    from gcm_tpu_torch.ops.cuda.spmm_prefetch import spmm_prefetch
+    from gcm_tpu_torch.ops.cuda.spmm_seg import spmm_seg
     from gcm_tpu_torch.ops.cuda.spmm_slots import spmm_slots
 
     t0 = time.perf_counter()
@@ -1156,19 +1443,28 @@ def main() -> int:
              for i, case in enumerate(SLOTS_CASES)]
     rows += [sddmm_case(*case[:6], seed=i, main_path=case[6])
              for i, case in enumerate(SDDMM_CASES)]
+    rows += [variant_case(*case[:7], seed=i, main_path=case[7])
+             for i, case in enumerate(VARIANT_CASES)]
     refusal_phase()
     sparse_refusal_phase()
     sddmm_refusal_phase()
+    variant_refusal_phase()
+    gradient_phase()
 
     wrappers = {"fused_dense_gnn": fused_dense_gnn,
                 "fused_dense_graph_conv": fused_dense_graph_conv,
                 "spmm_edge_list": spmm_edge_list, "spmm_slots": spmm_slots,
-                "sddmm_threshold_row": sddmm_threshold_row}
+                "sddmm_threshold_row": sddmm_threshold_row,
+                "spmm_pairs": spmm_pairs, "spmm_seg": spmm_seg,
+                "spmm_prefetch": spmm_prefetch,
+                "spmm_onehot_dtype": spmm_onehot_dtype}
     paths = [  # (phase, the kernels its path launches)
         (serve_phase, ("fused_dense_gnn",)),
         (scan_phase, ("fused_dense_gnn", "fused_dense_graph_conv")),
         (sparse_phase, ("spmm_edge_list", "spmm_slots")),
         (selector_phase, ("fused_dense_gnn", "sddmm_threshold_row")),
+        (sweep_phase, ("spmm_edge_list", "spmm_onehot_dtype", "spmm_pairs",
+                       "spmm_seg", "spmm_prefetch")),
     ]
     launches = dict.fromkeys(wrappers, 0)
     for phase, kernels in paths:

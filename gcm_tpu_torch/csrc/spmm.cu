@@ -1,4 +1,4 @@
-// Padded-edge-list SpMM for Hopper (sm_90a), f32 throughout.
+// Padded-edge-list SpMM for Hopper (sm_90a): f32 in and out.
 //
 // Replaces the Pallas kernel gcm_tpu/ops/pallas/spmm.py::spmm_edge_list:
 //   out[b, i, :] = sum over lanes e with sink_e = i of w_e * x[b, src_e, :]
@@ -23,8 +23,20 @@
 // Every output element is summed by one thread in edge order and written
 // once: no atomics, so two launches give bitwise-equal results. The block
 // re-reads the edge list once per sink tile; a sink-sorted (CSR) pass would
-// avoid that and is left to a later version.
+// avoid that and is left to a later version. Each message is w * x
+// rounded to float32 and each add rounded (__fmul_rn, __fadd_rn: no FMA
+// contraction), in lane order, so the plain version, which adds in the same
+// order, agrees with it bitwise.
+//
+// The same kernel, with kBf16 set, also replaces the bf16 mode of the
+// one-hot SpMM experiment benchmarks/spmm_variants.py::pallas_onehot_dtype
+// (its f32 mode is the function above): x is rounded to bf16 as it is read,
+// each weighted message w * x is rounded to bf16 (round to nearest even,
+// after a float32 product), and the messages are summed in float32, the two
+// rounding points of that kernel's one-hot matmuls (bf16 messages sum nearly
+// exactly in float32). The bound is the same.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -37,6 +49,11 @@ constexpr int kColsPerLane = 4;
 constexpr int kFeat = 32 * kColsPerLane;       // feature columns per block
 constexpr int kChunk = kThreads;               // edge lanes staged per round
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 spmm_edge_list_kernel(const float* __restrict__ x, const int* __restrict__ edges,
                       const float* __restrict__ w, float* __restrict__ out,
@@ -105,8 +122,14 @@ spmm_edge_list_kernel(const float* __restrict__ x, const int* __restrict__ edges
         if (f < F) {
           const float xv = __ldg(xrow + f);
 #pragma unroll
-          for (int sl = 0; sl < kRowsPerWarp; ++sl)
-            if (sl == slot) acc[sl][q] = fmaf(wj, xv, acc[sl][q]);
+          for (int sl = 0; sl < kRowsPerWarp; ++sl) {
+            if (sl != slot) continue;
+            if constexpr (kBf16)  // the message rounded twice, an f32 add
+              acc[sl][q] = __fadd_rn(
+                  acc[sl][q], round_bf16(__fmul_rn(wj, round_bf16(xv))));
+            else
+              acc[sl][q] = __fadd_rn(acc[sl][q], __fmul_rn(wj, xv));
+          }
         }
       }
     }
@@ -128,6 +151,24 @@ spmm_edge_list_kernel(const float* __restrict__ x, const int* __restrict__ edges
 
 }  // namespace
 
+namespace {
+
+int launch(bool bf16, const void* x, const void* edges, const void* w,
+           void* out, int B, int N, int F, int E, int device, void* stream) {
+  if (B < 1 || B > 65535 || N < 1 || F < 1 || E < 1)
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((N + kRows - 1) / kRows, (F + kFeat - 1) / kFeat, B);
+  auto kernel = bf16 ? spmm_edge_list_kernel<true> : spmm_edge_list_kernel<false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const int*>(edges),
+      static_cast<const float*>(w), static_cast<float*>(out), N, F, E);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
 extern "C" {
 
 // x [B,N,F] f32, edges [B,2,E] int32, w [B,E] f32, out [B,N,F] f32, all
@@ -135,15 +176,14 @@ extern "C" {
 int gcm_spmm_edge_list_f32(const void* x, const void* edges, const void* w,
                            void* out, int B, int N, int F, int E, int device,
                            void* stream) {
-  if (B < 1 || B > 65535 || N < 1 || F < 1 || E < 1)
-    return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((N + kRows - 1) / kRows, (F + kFeat - 1) / kFeat, B);
-  spmm_edge_list_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(edges),
-      static_cast<const float*>(w), static_cast<float*>(out), N, F, E);
-  return int(cudaGetLastError());
+  return launch(false, x, edges, w, out, B, N, F, E, device, stream);
+}
+
+// The same arguments; the messages rounded to bf16 as described above.
+int gcm_spmm_onehot_bf16(const void* x, const void* edges, const void* w,
+                         void* out, int B, int N, int F, int E, int device,
+                         void* stream) {
+  return launch(true, x, edges, w, out, B, N, F, E, device, stream);
 }
 
 }  // extern "C"

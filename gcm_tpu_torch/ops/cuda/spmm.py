@@ -8,6 +8,12 @@ so the -1 sentinel drops out. `spmm_edge_list` launches the hand-written
 CUDA kernel (csrc/spmm.cu) for CUDA tensors, or raises, and takes the plain
 PyTorch version, `spmm_edge_list_plain`, only for CPU tensors. Forward
 only.
+
+`spmm_onehot_dtype(x, edges, weights, dtype)` is the counterpart of the
+one-hot SpMM experiment benchmarks/spmm_variants.py::pallas_onehot_dtype,
+with its own launch count: float32 is the function above; bfloat16 rounds x
+to bf16 as it reads it and each weighted message to bf16 before the f32
+sum, in the bf16 entry of the same kernel.
 """
 
 from __future__ import annotations
@@ -20,23 +26,46 @@ import torch
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.cuda._launch import (check_cuda, check_forward_only,
                                             check_rc, ptr, stream_of)
+from gcm_tpu_torch.ops.scatter import in_order_slots, in_order_sum
 
 PRECISIONS = ("default", "f32x2", "highest")
 
 
-def spmm_edge_list_plain(x, edges, weights):
-    B, N, F = x.shape
+def _is_bf16(dtype) -> bool:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, "
+                         f"got {dtype}")
+    return dtype == torch.bfloat16
+
+
+def _edge_sum(x, edges, weights, bf16: bool, depth):
+    """The kernel's sums, in lane order: f32 products and adds; bf16: x and
+    each message rounded to bf16, the adds in float32."""
+    N, F = x.shape[1:]
     sink = edges[:, 0, :].long()
     src = edges[:, 1, :].long()
     valid = (sink >= 0) & (sink < N) & (src >= 0) & (src < N)
     msgs = torch.gather(x, 1, torch.where(valid, src, 0)[..., None]
                         .expand(-1, -1, F))
-    msgs = torch.where(valid[..., None], msgs * weights[..., None].to(x.dtype),
-                       0.0)
-    out = torch.zeros((B, N + 1, F), dtype=x.dtype, device=x.device)
-    out.scatter_add_(1, torch.where(valid, sink, N)[..., None]
-                     .expand(-1, -1, F), msgs)
-    return out[:, :N]
+    if bf16:
+        msgs = msgs.to(torch.bfloat16).to(x.dtype)
+    msgs = msgs * weights[..., None].to(x.dtype)
+    if bf16:
+        msgs = msgs.to(torch.bfloat16).to(x.dtype)
+    slots = in_order_slots(torch.where(valid, sink, -1), N, depth)
+    return in_order_sum(msgs, slots)
+
+
+def spmm_edge_list_plain(x, edges, weights, depth: int | None = None):
+    """The kernel's function in plain PyTorch, each output summed in lane
+    order. depth: the most lanes into one sink, which the caller may know
+    (see ops/scatter.py::in_order_slots); else found with a host wait."""
+    return _edge_sum(x, edges, weights, False, depth)
+
+
+def spmm_onehot_dtype_plain(x, edges, weights, dtype=torch.float32,
+                            depth: int | None = None):
+    return _edge_sum(x, edges, weights, _is_bf16(dtype), depth)
 
 
 @functools.cache
@@ -46,10 +75,12 @@ def _lib() -> ctypes.CDLL:
     lib.gcm_spmm_edge_list_f32.argtypes = [vp, vp, vp, vp, ip, ip, ip, ip,
                                            ip, vp]
     lib.gcm_spmm_edge_list_f32.restype = ip
+    lib.gcm_spmm_onehot_bf16.argtypes = lib.gcm_spmm_edge_list_f32.argtypes
+    lib.gcm_spmm_onehot_bf16.restype = ip
     return lib
 
 
-def _launch(x, edges, weights):
+def _launch(x, edges, weights, counter, bf16=False):
     if x.dim() != 3 or edges.dim() != 3 or edges.shape[1] != 2:
         raise ValueError(f"x must be [B, N, F] and edges [B, 2, E], got "
                          f"{tuple(x.shape)} and {tuple(edges.shape)}")
@@ -63,11 +94,12 @@ def _launch(x, edges, weights):
     check_cuda("edges", edges, (B, 2, E), dev, torch.int32)
     check_cuda("weights", weights, (B, E), dev)
     out = torch.empty((B, N, F), device=dev, dtype=torch.float32)
-    rc = _lib().gcm_spmm_edge_list_f32(ptr(x), ptr(edges), ptr(weights),
-                                       ptr(out), B, N, F, E, dev.index,
-                                       stream_of(dev))
-    check_rc("spmm_edge_list", rc)
-    spmm_edge_list.launches += 1
+    entry = (_lib().gcm_spmm_onehot_bf16 if bf16
+             else _lib().gcm_spmm_edge_list_f32)
+    rc = entry(ptr(x), ptr(edges), ptr(weights), ptr(out), B, N, F, E,
+               dev.index, stream_of(dev))
+    check_rc(counter.__name__, rc)
+    counter.launches += 1
     return out
 
 
@@ -75,8 +107,9 @@ def spmm_edge_list(x, edges, weights, precision: str = "default"):
     """x [B,N,F], edges [B,2,E], weights [B,E] -> [B,N,F].
 
     precision: 'default', 'f32x2' or 'highest', the JAX kernel's modes. All
-    three compute with float32 FMAs here. On the TPU 'default' and 'f32x2'
-    were bf16 approximations; float32 is at least as exact as any of them.
+    three compute in float32 here, each product and each add rounded once.
+    On the TPU 'default' and 'f32x2' were bf16 approximations of a float32
+    sum; float32 is at least as exact as any of them.
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
     if precision not in PRECISIONS:
@@ -85,7 +118,25 @@ def spmm_edge_list(x, edges, weights, precision: str = "default"):
     check_forward_only(x, weights)
     if x.device.type == "cpu":
         return spmm_edge_list_plain(x, edges, weights)
-    return _launch(x, edges, weights)
+    return _launch(x, edges, weights, spmm_edge_list)
 
 
 spmm_edge_list.launches = 0  # kernel launches, for callers to read and reset
+
+
+def spmm_onehot_dtype(x, edges, weights, dtype=torch.float32):
+    """x [B,N,F], edges [B,2,E], weights [B,E] -> [B,N,F] float32.
+
+    dtype torch.float32: spmm_edge_list's function; torch.bfloat16: x
+    rounded to bf16 as read and each message w * x rounded to bf16 before
+    the f32 sum, as the one-hot experiment's bf16 matmuls round. CUDA
+    tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    bf16 = _is_bf16(dtype)
+    check_forward_only(x, weights)
+    if x.device.type == "cpu":
+        return spmm_onehot_dtype_plain(x, edges, weights, dtype)
+    return _launch(x, edges, weights, spmm_onehot_dtype, bf16)
+
+
+spmm_onehot_dtype.launches = 0

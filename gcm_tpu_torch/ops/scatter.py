@@ -23,6 +23,9 @@ The sums use `scatter_add_`, which on a CUDA tensor adds with atomics in no
 fixed order (and, unlike `index_put_` with accumulate, never waits for the
 host): there `edge_scatter_add` and `edge_weight_scatter_add` may differ in
 the last bit between runs; `edge_scatter_count` sums ones and stays exact.
+The plain versions of the spmm kernels instead add in lane order through
+`in_order_slots` and `in_order_sum`, as the kernels do, so that a kernel
+and its plain version agree bitwise.
 """
 
 from __future__ import annotations
@@ -165,6 +168,43 @@ def bucket_rank(keyid):
     rank = torch.empty_like(pos)
     rank.scatter_(1, order, pos - seg_start)  # back to lane order
     return rank.to(torch.int32)
+
+
+def in_order_slots(dest, num_rows: int, depth: int | None = None):
+    """The lanes of each row in lane order: dest [B, L] gives each lane's
+    row (one outside 0..num_rows-1 adds to none) -> slots [B, num_rows,
+    depth] int64, padded with L. depth is the most lanes into one row; left
+    None it is found, with one host wait. A larger one pads more; a smaller
+    one loses lanes."""
+    B, L = dest.shape
+    ok = (dest >= 0) & (dest < num_rows)
+    key = torch.where(ok, dest.long(), num_rows)
+    rank = bucket_rank(key).long()
+    if depth is None:
+        depth = int(torch.where(ok, rank + 1, 0).max()) if L else 0
+    keep = ok & (rank < depth)
+    slots = torch.full((B, num_rows + 1, depth + 1), L, dtype=torch.long,
+                       device=dest.device)
+    lane = torch.arange(L, device=dest.device).expand(B, L)
+    slots[torch.arange(B, device=dest.device)[:, None],
+          torch.where(keep, key, num_rows),
+          torch.where(keep, rank, depth)] = lane  # the rest in the trash
+    return slots[:, :num_rows, :depth]
+
+
+def in_order_sum(msgs, slots):
+    """out[b, r] = ((0 + msgs[b, slots[b, r, 0]]) + msgs[b, slots[b, r, 1]])
+    + ..., one add at a time in msgs' dtype, a slot of L adding nothing.
+    msgs [B, L, F], slots [B, R, D] -> [B, R, F]. Every output is summed in
+    this one order, so the result is bitwise the same on any device and in
+    every run (a scatter_add_ on a CUDA tensor adds in no fixed order)."""
+    B, L, F = msgs.shape
+    padded = torch.cat([msgs, msgs.new_zeros((B, 1, F))], dim=1)
+    out = msgs.new_zeros((B, slots.shape[1], F))
+    for d in range(slots.shape[2]):
+        out = out + torch.gather(padded, 1,
+                                 slots[:, :, d, None].expand(-1, -1, F))
+    return out
 
 
 def nonzero_padded(mask, k: int):

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import gcm_tpu_torch as g
+from gcm_tpu_torch.benchmarks.spmm_variants import run_sweep
 
 torch.set_num_threads(1)
 
@@ -20,7 +21,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def test_import_leaves_jax_out():
     code = ("import sys, gcm_tpu_torch, gcm_tpu_torch.ops._build, "
-            "gcm_tpu_torch.weights; "
+            "gcm_tpu_torch.weights, gcm_tpu_torch.benchmarks.spmm_variants; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'gcm_tpu' "
             "or m.startswith('gcm_tpu.')); print(bad)")
@@ -70,12 +71,13 @@ def _cpu_model():
     lambda: g.RelativePositionalEncoding(feat_dim=4),
     lambda: g.DenseGCM(g.DenseGNN([g.DenseGraphConv(4, 4, device="cpu")]),
                        edge_selectors=g.CosineEdge(0.5)),
+    lambda: run_sweep(),
 ], ids=["readme_dense_gcm", "Linear", "DenseGraphConv", "DenseGCM",
         "SessionServer", "resolve_device", "readme_sparse_gcm", "GraphConv",
         "GCNConv", "SparseGCM", "LayerNorm", "LearnedEdge",
         "CosineEdge_learned", "SpatialEdge_learned",
         "TemporalBackedge_learned", "PositionalEncoding",
-        "RelativePositionalEncoding", "DenseGCM_cosine"])
+        "RelativePositionalEncoding", "DenseGCM_cosine", "run_sweep"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")

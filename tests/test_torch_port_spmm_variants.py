@@ -1,0 +1,497 @@
+"""The port's SpMM variants (gcm_tpu_torch/ops/cuda/spmm2.py, spmm_seg.py,
+spmm_prefetch.py, spmm.py::spmm_onehot_dtype) and its SpMM sweep
+(gcm_tpu_torch/benchmarks/spmm_variants.py) against the JAX package: the
+Pallas kernels run in interpret mode on the CPU, as
+tests/test_pallas_kernels.py runs them, and the one-hot experiment of
+benchmarks/spmm_variants.py is loaded from its file with its shape globals
+set to the test's.
+
+On the CPU the wrappers take their plain PyTorch versions; the CUDA kernels
+themselves are checked against those plain versions on the card by
+chip_smoke.py. Tolerances, by what differs:
+- the pair kernel's 'f32x2' mode: 1e-4. The port sums in float32; the TPU
+  kernel sums a hi + lo bf16 split of each message (about 2^-17 relative
+  per message);
+- spmm_seg: 1e-4. The Pallas kernel reads each segment as a difference of
+  two prefix sums of a 128-lane chunk, which cancels against the prefix's
+  magnitude; the port sums each segment directly;
+- everything else (the 'bf16' modes included, where both sides round the
+  same float32 message to bf16): 1e-5, the summation order;
+- the integer layouts of the bucketing helpers: exactly equal.
+
+Cases of one check run in a loop inside one test (the failure message names
+the case), as in tests/test_torch_port_sparse_kernels.py.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gcm_tpu.ops.pallas import spmm2 as jax_pairs
+from gcm_tpu.ops.pallas import spmm_prefetch as jax_prefetch
+from gcm_tpu.ops.pallas import spmm_seg as jax_seg
+from gcm_tpu_torch.benchmarks import spmm_variants as sweep_mod
+from gcm_tpu_torch.benchmarks.spmm_variants import NOT_PORTED, run_sweep
+from gcm_tpu_torch.ops import _build
+from gcm_tpu_torch.ops.cuda import spmm as spmm_mod
+from gcm_tpu_torch.ops.cuda import spmm2 as pairs_mod
+from gcm_tpu_torch.ops.cuda import spmm_prefetch as prefetch_mod
+from gcm_tpu_torch.ops.cuda import spmm_seg as seg_mod
+from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list, spmm_onehot_dtype
+from gcm_tpu_torch.ops.cuda.spmm2 import (bucket_edges_pairs,
+                                          check_bucket_overflow, spmm_pairs,
+                                          spmm_pairs_T, transpose_pairs)
+from gcm_tpu_torch.ops.cuda.spmm_prefetch import (bucket_edges_sink_blocks,
+                                                  spmm_prefetch,
+                                                  spmm_prefetch_bucketed)
+from gcm_tpu_torch.ops.cuda.spmm_seg import (bucket_edges_segments, spmm_seg,
+                                             spmm_seg_T)
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+TOL_F32X2 = 1e-4
+TOL_SEG = 1e-4
+TOL = 1e-5
+
+
+def graph(B, N, E, F, seed, holes=True):
+    """x, edges, w (numpy): random edges with sentinel lanes (sink only,
+    source only, both, and an all-sentinel tail)."""
+    rng = np.random.default_rng(seed)
+    edges = rng.integers(0, N, (B, 2, E)).astype(np.int32)
+    if holes:
+        edges[:, 0, 1::7] = -1
+        edges[:, 1, 2::7] = -1
+        edges[:, :, 3::7] = -1
+        edges[:, :, -4:] = -1
+    w = rng.uniform(0.5, 1.5, (B, E)).astype(np.float32)
+    x = rng.standard_normal((B, N, F)).astype(np.float32)
+    return x, edges, w
+
+
+def t(*arrays):
+    return [torch.from_numpy(np.asarray(a)) for a in arrays]
+
+
+def j(*arrays):
+    return [jnp.asarray(np.asarray(a)) for a in arrays]
+
+
+def assert_same(got, want, name):
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=f"{name} output {i}")
+        assert g.numpy().dtype == np.asarray(w).dtype, name
+
+
+def test_layouts_match_jax_exactly():
+    """bucket_edges_pairs, transpose_pairs, bucket_edges_segments and
+    bucket_edges_sink_blocks give the JAX package's integer layouts,
+    weights, counts and dropped counts, with overflowing buckets, sentinels
+    and sinks and sources of N or more among the inputs."""
+    for N, E, cap, seed in [(128, 300, 128, 0),   # one window, overflow
+                            (256, 512, 256, 1), (384, 700, 128, 2)]:
+        _, edges, w = graph(2, N, E, 4, seed)
+        edges[0, 0, 5::50] = N + 3
+        edges[1, 1, 6::50] = N + 140
+        te, tw = t(edges, w)
+        got = bucket_edges_pairs(te, tw, N, cap)
+        want = jax_pairs.bucket_edges_pairs(*j(edges, w), N, cap)
+        assert_same(got, want, f"pairs N={N} cap={cap}")
+        assert all(a.is_contiguous() for a in got)
+        assert_same(transpose_pairs(got[0], got[1], N, cap),
+                    jax_pairs.transpose_pairs(want[0], want[1], N, cap),
+                    f"transpose N={N}")
+        got = bucket_edges_segments(te, tw, N, cap)
+        want = jax_seg.bucket_edges_segments(*j(edges, w), N, cap)
+        assert_same(got, want, f"segments N={N} cap={cap}")
+        assert all(a.is_contiguous() for a in got)
+    _, edges, w = graph(3, 16, 40, 4, seed=3)
+    edges[0, 0, 7] = 19  # a local sink past the last block
+    edges[1, 1, 8] = 30
+    for nblk, cap in [(1, None), (2, None), (4, None), (4, 2), (4, 60)]:
+        got = bucket_edges_sink_blocks(*t(edges, w), 16, nblk, cap)
+        want = jax_prefetch.bucket_edges_sink_blocks(*j(edges, w), 16, nblk,
+                                                     cap)
+        assert_same(got, want, f"sink blocks nblk={nblk} cap={cap}")
+
+
+def test_spmm_pairs_matches_pallas():
+    for N, E, F, cap in [(256, 512, 64, 256), (128, 200, 13, 256)]:
+        x, edges, w = graph(2, N, E, F, seed=N)
+        be, bw, counts = bucket_edges_pairs(*t(edges, w), N, cap)
+        check_bucket_overflow(counts, cap)
+        jbe, jbw, _ = jax_pairs.bucket_edges_pairs(*j(edges, w), N, cap)
+        for precision, tol in (("f32x2", TOL_F32X2), ("bf16", TOL)):
+            want = jax_pairs.spmm_pairs(jnp.asarray(x), jbe, jbw, N, cap,
+                                        precision)
+            got = spmm_pairs(torch.from_numpy(x), be, bw, N, cap, precision)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=tol, rtol=0,
+                                       err_msg=f"N={N} {precision}")
+            # the transposed entry computes the same
+            gotT = spmm_pairs_T(torch.from_numpy(x).transpose(1, 2), be, bw,
+                                cap, precision)
+            np.testing.assert_array_equal(gotT.transpose(1, 2).numpy(),
+                                          got.numpy())
+        # and the sum it stands for: the edge-list SpMM of the graph
+        np.testing.assert_allclose(
+            spmm_pairs(torch.from_numpy(x), be, bw, N, cap).numpy(),
+            spmm_edge_list(*t(x, edges, w)).numpy(), atol=TOL, rtol=0)
+
+
+def test_spmm_seg_matches_pallas():
+    x, edges, w = graph(2, 256, 512, 16, seed=5)
+    # a sink whose 200 edges span two 128-lane chunks of its bucket
+    xs = np.random.default_rng(6).standard_normal((1, 128, 8)) \
+        .astype(np.float32)
+    spans = np.full((1, 2, 256), -1, np.int32)
+    spans[0, 0, :200] = 7
+    spans[0, 1, :200] = np.arange(200) % 128
+    cases = {"random": (x, edges, w, 256, 256),
+             "chunk_spanning": (xs, spans, np.ones((1, 256), np.float32),
+                                128, 256)}
+    for name, (x, edges, w, N, cap) in cases.items():
+        be, bw, begin, end, tot = bucket_edges_segments(*t(edges, w), N, cap)
+        assert int(tot.max()) <= cap
+        want = jax_seg.spmm_seg(jnp.asarray(x),
+                                *jax_seg.bucket_edges_segments(
+                                    *j(edges, w), N, cap)[:4], N, cap)
+        got = spmm_seg(torch.from_numpy(x), be, bw, begin, end, N, cap)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=TOL_SEG, rtol=0, err_msg=name)
+        np.testing.assert_allclose(got.numpy(),
+                                   spmm_edge_list(*t(x, edges, w)).numpy(),
+                                   atol=TOL, rtol=0, err_msg=name)
+        gotT = spmm_seg_T(torch.from_numpy(x).transpose(1, 2), be, bw, begin,
+                          end, cap)
+        np.testing.assert_array_equal(gotT.transpose(1, 2).numpy(),
+                                      got.numpy())
+
+
+def test_spmm_prefetch_matches_pallas():
+    """nblk 1, 2 and 4 at TestSpmmPrefetch's shape, and the on-chip shape
+    of benchmarks/drive_r5c.py (4, 32, 128) with E=64 and four blocks."""
+    cases = [(3, 16, 40, 8, 1), (3, 16, 40, 8, 2), (3, 16, 40, 8, 4),
+             (4, 32, 64, 128, 4)]
+    for B, N, E, F, nblk in cases:
+        x, edges, w = graph(B, N, E, F, seed=nblk + N)
+        want = jax_prefetch.spmm_prefetch(*j(x, edges, w), n_blocks=nblk)
+        got = spmm_prefetch(*t(x, edges, w), n_blocks=nblk)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                                   rtol=0, err_msg=f"{(B, N, E, F, nblk)}")
+        sl, src, pw, dropped = bucket_edges_sink_blocks(*t(edges, w), N,
+                                                        nblk)
+        assert int(dropped.max()) == 0  # lossless at K = E
+        np.testing.assert_array_equal(
+            spmm_prefetch_bucketed(torch.from_numpy(x), sl, src, pw,
+                                   N).numpy(), got.numpy())
+
+
+def load_jax_sweep(monkeypatch, B, N, E, F):
+    """benchmarks/spmm_variants.py, loaded from its file, with its shape
+    globals (read by pallas_onehot_dtype) set to the test's."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_spmm_variants", ROOT / "benchmarks" / "spmm_variants.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for name, value in dict(B=B, N=N, E=E, F=F).items():
+        monkeypatch.setattr(mod, name, value)
+    return mod
+
+
+def test_spmm_onehot_dtype_matches_pallas(monkeypatch):
+    B, N, E, F = 2, 64, 512, 16  # E a whole number of the kernel's blocks
+    sweep = load_jax_sweep(monkeypatch, B, N, E, F)
+    x, edges, w = graph(B, N, E, F, seed=7)
+    edges[0, 1, 9::40] = N + 1   # sources and sinks of N or more
+    edges[1, 0, 10::40] = N
+    for dtype, jdtype in ((torch.float32, jnp.float32),
+                          (torch.bfloat16, jnp.bfloat16)):
+        want = sweep.pallas_onehot_dtype(*j(x, edges, w), jdtype)
+        got = spmm_onehot_dtype(*t(x, edges, w), dtype)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                                   rtol=0, err_msg=str(dtype))
+        assert got.dtype == torch.float32
+    np.testing.assert_array_equal(
+        spmm_onehot_dtype(*t(x, edges, w), torch.float32).numpy(),
+        spmm_edge_list(*t(x, edges, w)).numpy())
+
+
+def test_gradients_match_jax():
+    """torch.autograd through spmm_pairs and spmm_seg against jax.grad
+    through their custom VJPs: dx, and dw lane by lane in the bucketed
+    layout (tolerance 1e-4: dx runs the forward sums again)."""
+    N, cap = 256, 256
+    x, edges, w = graph(2, N, 512, 16, seed=8)
+    cot = np.random.default_rng(9).standard_normal(x.shape).astype(np.float32)
+    pe = bucket_edges_pairs(*t(edges, w), N, cap)
+    se = bucket_edges_segments(*t(edges, w), N, cap)
+    jpe = jax_pairs.bucket_edges_pairs(*j(edges, w), N, cap)
+    jse = jax_seg.bucket_edges_segments(*j(edges, w), N, cap)
+    cases = {
+        "pairs f32x2": (
+            lambda a, b: spmm_pairs(a, pe[0], b, N, cap, "f32x2"),
+            lambda a, b: jax_pairs.spmm_pairs(a, jpe[0], b, N, cap, "f32x2"),
+            pe[1], jpe[1]),
+        "pairs bf16": (
+            lambda a, b: spmm_pairs(a, pe[0], b, N, cap, "bf16"),
+            lambda a, b: jax_pairs.spmm_pairs(a, jpe[0], b, N, cap, "bf16"),
+            pe[1], jpe[1]),
+        "seg": (
+            lambda a, b: spmm_seg(a, se[0], b, se[2], se[3], N, cap),
+            lambda a, b: jax_seg.spmm_seg(a, jse[0], b, jse[2], jse[3], N,
+                                          cap),
+            se[1], jse[1]),
+    }
+    for name, (fn, jfn, bw, jbw) in cases.items():
+        tx = torch.from_numpy(x).requires_grad_()
+        tw = bw.clone().requires_grad_()
+        (fn(tx, tw) * torch.from_numpy(cot)).sum().backward()
+        jdx, jdw = jax.grad(lambda a, b: jnp.sum(jfn(a, b) * cot),
+                            argnums=(0, 1))(jnp.asarray(x), jbw)
+        np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx),
+                                   atol=1e-4, rtol=0, err_msg=f"{name} dx")
+        np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw),
+                                   atol=1e-4, rtol=0, err_msg=f"{name} dw")
+        assert float(tw.grad.abs().sum()) > 0
+
+
+def test_out_of_range_indices():
+    """The pair and segment kernels clamp a source into its bucket's
+    source window (one of N or more reads row N-1) and drop a sink outside
+    the bucket's sink window, as their Pallas kernels do; the edge-list and
+    one-hot kernels drop both. The per-edge kernel clamps a source into
+    0..N-1 and drops a local sink outside its block, where the Pallas
+    kernel's interpret mode writes the block's last row."""
+    N, cap = 128, 128
+    x = np.random.default_rng(10).standard_normal((1, N, 4)) \
+        .astype(np.float32)
+    edges = np.full((1, 2, 8), -1, np.int32)
+    edges[0, :, :2] = [[5, 140], [133, 3]]   # (5, 133) and (140, 3)
+    w = np.ones((1, 8), np.float32)
+    clamped = np.zeros_like(x)
+    clamped[0, 5] = x[0, N - 1]
+    be, bw, _ = bucket_edges_pairs(*t(edges, w), N, cap)
+    got = spmm_pairs(torch.from_numpy(x), be, bw, N, cap).numpy()
+    np.testing.assert_array_equal(got, clamped)
+    want = jax_pairs.spmm_pairs(jnp.asarray(x), *jax_pairs.bucket_edges_pairs(
+        *j(edges, w), N, cap)[:2], N, cap)
+    np.testing.assert_allclose(got, np.asarray(want), atol=TOL_F32X2, rtol=0)
+    se = bucket_edges_segments(*t(edges, w), N, cap)
+    got = spmm_seg(torch.from_numpy(x), *se[:4], N, cap).numpy()
+    np.testing.assert_array_equal(got, clamped)
+    want = jax_seg.spmm_seg(jnp.asarray(x), *jax_seg.bucket_edges_segments(
+        *j(edges, w), N, cap)[:4], N, cap)
+    np.testing.assert_allclose(got, np.asarray(want), atol=TOL_SEG, rtol=0)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert not spmm_onehot_dtype(*t(x, edges, w), dtype).numpy().any()
+
+    # the per-edge kernel: S = 32 rows per block
+    got = spmm_prefetch(*t(x, edges, w)).numpy()
+    np.testing.assert_array_equal(got, clamped)
+    want = np.asarray(jax_prefetch.spmm_prefetch(*j(x, edges, w)))
+    np.testing.assert_allclose(got[0, :N - 1], want[0, :N - 1], atol=TOL)
+    assert np.abs(want[0, N - 1] - x[0, 3]).max() < TOL  # the Pallas write
+    assert not got[0, N - 1].any()                        # dropped here
+
+
+def lane_loop(x, dest, src, w):
+    """out[b, dest] = out[b, dest] + w * x[b, src], lane after lane in
+    numpy float32 (each product and add rounded once); dest -1 adds
+    nothing."""
+    out = np.zeros_like(x)
+    for b in range(x.shape[0]):
+        for d, s_, wt in zip(dest[b], src[b], w[b]):
+            if d >= 0:
+                out[b, d] = out[b, d] + np.float32(wt) * x[b, s_]
+    return out
+
+
+def test_plain_versions_add_in_lane_order():
+    """Each plain version is bitwise the lane-by-lane float32 sum that its
+    kernel computes (the chip check then holds kernel and plain version
+    bitwise equal); a depth above the most lanes into one row, as a caller
+    may pass it, changes nothing; spmm_seg's walk of its tables is lane
+    order, so it equals spmm_pairs on the same sink-sorted layout."""
+    B, N, E, F, cap = 2, 256, 900, 5, 256
+    x, edges, w = graph(B, N, E, F, seed=12)
+    edges[:, 0, :150] = 9  # a segment over two 128-lane chunks
+    edges[0, 1, 5::40] = N + 2
+    sink, src = edges[:, 0].astype(np.int64), edges[:, 1].astype(np.int64)
+    ok = (sink >= 0) & (sink < N) & (src >= 0) & (src < N)
+    want = lane_loop(x, np.where(ok, sink, -1), np.where(ok, src, 0), w)
+    tx, te, tw = t(x, edges, w)
+    plains = {
+        "edge_list": lambda d: spmm_mod.spmm_edge_list_plain(tx, te, tw, d),
+        "onehot_f32": lambda d: spmm_mod.spmm_onehot_dtype_plain(
+            tx, te, tw, torch.float32, d)}
+    for name, plain in plains.items():
+        for depth in (None, 160, 400):
+            np.testing.assert_array_equal(plain(depth).numpy(), want,
+                                          err_msg=f"{name} depth={depth}")
+
+    be, bw, begin, end, _ = bucket_edges_segments(te, tw, N, cap)
+    nw = N // 128
+    bsink = be[:, 0].numpy().reshape(B, nw, nw, cap).astype(np.int64)
+    bsrc = be[:, 1].numpy().reshape(B, nw, nw, cap).astype(np.int64)
+    ks = np.arange(nw)[:, None, None]
+    kc = np.arange(nw)[None, :, None]
+    bdest = np.where((bsink >= ks * 128) & (bsink < ks * 128 + 128), bsink,
+                     -1)
+    bsrc = kc * 128 + np.clip(bsrc - kc * 128, 0, 127)
+    want = lane_loop(x, bdest.reshape(B, -1), bsrc.reshape(B, -1),
+                     bw.numpy())
+    for depth in (None, 400):
+        for name, got in (
+                ("pairs", pairs_mod.spmm_pairs_plain(tx, be, bw, cap,
+                                                     "f32x2", depth)),
+                ("seg", seg_mod.spmm_seg_plain(tx, be, bw, begin, end, cap,
+                                               depth))):
+            np.testing.assert_array_equal(got.numpy(), want,
+                                          err_msg=f"{name} depth={depth}")
+
+    sl, psrc, pw, _ = bucket_edges_sink_blocks(te, tw, N, 4)
+    S = N // 4
+    slv = sl.numpy().astype(np.int64)
+    pdest = np.where((slv >= 0) & (slv < S),
+                     np.arange(4)[None, :, None] * S + slv, -1)
+    want = lane_loop(x, pdest.reshape(B, -1),
+                     np.clip(psrc.numpy(), 0, N - 1).reshape(B, -1),
+                     pw.numpy().reshape(B, -1))
+    for depth in (None, 400):
+        np.testing.assert_array_equal(
+            prefetch_mod.spmm_prefetch_plain(tx, sl, psrc, pw, N,
+                                             depth).numpy(), want,
+            err_msg=f"prefetch depth={depth}")
+
+
+def test_guards():
+    """The overflow guards raise; the wrappers refuse a graph that is not a
+    whole number of 128-node windows, a cap that is not a multiple of 128,
+    wrong layout shapes, unknown modes and (forward-only entries) inputs
+    that autograd tracks."""
+    _, edges, w = graph(2, 128, 300, 4, seed=11, holes=False)
+    _, _, counts = bucket_edges_pairs(*t(edges, w), 128, 128)
+    assert int(counts.max()) > 128
+    with pytest.raises(ValueError, match="overflow"):
+        check_bucket_overflow(counts, 128)
+    check_bucket_overflow(counts, int(counts.max()))
+    *_, tot = bucket_edges_segments(*t(edges, w), 128, 128)
+    np.testing.assert_array_equal(tot.numpy(), counts.numpy())
+    *_, dropped = bucket_edges_sink_blocks(*t(edges, w), 128, 4, cap=8)
+    assert int(dropped.min()) > 0
+
+    x = torch.zeros(2, 128, 4)
+    be, bw, _ = bucket_edges_pairs(*t(edges, w), 128, 256)
+    seg = bucket_edges_segments(*t(edges, w), 128, 256)[:4]
+    raises = {
+        "N not a multiple of 128": lambda: spmm_pairs(
+            torch.zeros(2, 100, 4), be, bw, 100, 256),
+        "cap not a multiple of 128": lambda: bucket_edges_pairs(
+            *t(edges, w), 128, 200),
+        "pair layout of another cap": lambda: spmm_pairs(x, be, bw, 128,
+                                                         128),
+        "seg tables of another cap": lambda: spmm_seg(x, *seg, 128, 128),
+        "seg N not a multiple of 128": lambda: bucket_edges_segments(
+            *t(edges, w), 192, 128),
+        "unknown precision": lambda: spmm_pairs(x, be, bw, 128, 256,
+                                                "highest"),
+        "onehot float64": lambda: spmm_onehot_dtype(
+            x, *t(edges, w), torch.float64),
+        "prefetch blocks": lambda: spmm_prefetch(x, *t(edges, w),
+                                                 n_blocks=3),
+    }
+    for name, call in raises.items():
+        with pytest.raises(ValueError):
+            call()
+            pytest.fail(name)
+    tracked = x.clone().requires_grad_()
+    for call in (lambda: spmm_prefetch(tracked, *t(edges, w)),
+                 lambda: spmm_pairs_T(tracked.transpose(1, 2), be, bw, 256),
+                 lambda: spmm_seg_T(tracked.transpose(1, 2), *seg, 256),
+                 lambda: spmm_onehot_dtype(tracked, *t(edges, w))):
+        with pytest.raises(NotImplementedError, match="no_grad"):
+            call()
+
+
+def test_non_cpu_tensors_never_reach_the_plain_versions(monkeypatch):
+    """A tensor that is not on the CPU launches the kernel or raises; the
+    plain version is never taken for it."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for a non-CPU tensor")
+
+    for mod, name in ((spmm_mod, "spmm_onehot_dtype_plain"),
+                      (pairs_mod, "spmm_pairs_plain"),
+                      (seg_mod, "spmm_seg_plain"),
+                      (prefetch_mod, "spmm_prefetch_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    B, N, F, cap = 2, 128, 8, 128
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    x = meta(B, N, F)
+    ints = torch.int32
+    calls = {
+        spmm_onehot_dtype: lambda: spmm_onehot_dtype(
+            x, meta(B, 2, 16, dtype=ints), meta(B, 16), torch.bfloat16),
+        spmm_pairs: lambda: spmm_pairs(x, meta(B, 2, cap, dtype=ints),
+                                       meta(B, cap), N, cap),
+        spmm_seg: lambda: spmm_seg(x, meta(B, 2, cap, dtype=ints),
+                                   meta(B, cap), meta(B, 1, 1, 128,
+                                                      dtype=ints),
+                                   meta(B, 1, 1, 128, dtype=ints), N, cap),
+        spmm_prefetch: lambda: spmm_prefetch_bucketed(
+            x, meta(B, 4, 8, dtype=ints), meta(B, 4, 8, dtype=ints),
+            meta(B, 4, 8), N),
+    }
+    for wrapper, call in calls.items():
+        before = wrapper.launches
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
+        assert wrapper.launches == before, wrapper.__name__
+
+
+def test_kernel_build(monkeypatch):
+    """The new sources are built by build_all(); without the CUDA toolkit,
+    loading their libraries raises instead of falling back."""
+    assert {"spmm", "spmm_pairs", "spmm_seg", "spmm_prefetch"} \
+        <= set(_build.sources())
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
+    for mod in (pairs_mod, seg_mod, prefetch_mod):
+        _build.load.cache_clear()
+        mod._lib.cache_clear()
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            mod._lib()
+
+
+def test_run_sweep_on_cpu(capsys, monkeypatch):
+    """The sweep runs every row at a small shape on the CPU (the plain
+    versions), each within its check, and names the JAX rows it leaves
+    out; a skipped row is not run."""
+    monkeypatch.setattr(sweep_mod, "ITERS", 1)
+    monkeypatch.setattr(sweep_mod, "ROUNDS", 1)
+    out = run_sweep(B=2, N=256, E=512, F=16, device="cpu", skip=("sorted",))
+    rows = out["results"]
+    assert set(rows) == {
+        "scatter", "cumsum", "sparse_mm", "edge_list_f32x2", "onehot_f32",
+        "onehot_bf16", "seg", "prefetch_nblk4", "prefetch_nblk8",
+        "pairs_f32x2", "pairs_bf16"}
+    for name, row in rows.items():
+        assert "error" not in row, (name, row)
+        assert row["edges_per_s"] > 0 and row["max_abs_err"] <= 1e-3 or \
+            name.endswith("bf16"), (name, row)
+    assert rows["onehot_bf16"]["max_abs_err"] > 0  # the rounding shows
+    assert out["cap"] == 256 and out["device"] == "cpu"
+    assert out["not_ported"] == list(NOT_PORTED)
+    assert {"pallas_win", "xla_sorted_hint"} <= set(NOT_PORTED)
+    assert capsys.readouterr().out.count("\n") == len(rows)
