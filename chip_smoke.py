@@ -38,23 +38,29 @@ Phases, one JSON line each:
    timed alone and in turns with the README's temporal selector, 100
    served ticks with a profiled window each and two rounds of scans.
 8. sweep: the SpMM variant sweep (gcm_tpu_torch/benchmarks/spmm_variants.py)
-   at its full width, B=64, N=512, E=8192, F=128: every row checked against
-   the plain scatter (1e-3; 0.5 for bf16) and timed in edges/s, through
-   spmm_edge_list, spmm_onehot_dtype, spmm_pairs, spmm_seg and
-   spmm_prefetch.
+   as its script runs it: the gather probe through take_rows, take_lanes
+   and take_rows_loop (each "ok"), then its 15 rows at full width, B=64,
+   N=512, E=8192, F=128, every row checked against the plain scatter (1e-3;
+   0.5 for bf16) and timed in edges/s, through spmm_edge_list,
+   spmm_onehot_dtype, spmm_win, spmm_pairs, spmm_seg and spmm_prefetch,
+   with no row of the JAX script left out.
 Phase 3 also holds spmm_edge_list (bitwise: kernel and plain version add
 in lane order) and spmm_slots (1e-5) against their plain versions beside
 one torch.sparse.mm call on a block-diagonal COO matrix of the same edges,
 sddmm_threshold_row bitwise against its plain version beside a bmm + norms
 + compare chain, and the variant kernels spmm_pairs (f32x2, bf16),
-spmm_seg, spmm_prefetch and spmm_onehot_dtype (f32, bf16) bitwise against
-theirs (which add in the kernels' order) at the sweep's point, at odd
-shapes with
-sentinels and out-of-range indices, a segment spanning two chunks,
+spmm_seg, spmm_prefetch, spmm_onehot_dtype and spmm_win (f32, bf16)
+bitwise against theirs (which add in the kernels' order) at the sweep's
+point, at odd shapes with sentinels and out-of-range indices (spmm_win on
+raw lanes whose sinks leave their windows), a segment spanning two chunks,
 benchmarks/drive_r5c.py's shape and empty edge lists, beside the same
-torch.sparse.mm; it checks every kernel's refusals, and runs spmm_pairs
-and spmm_seg forward and backward against autograd through their plain
-versions (dx and dw within 1e-4, exact launch counts).
+torch.sparse.mm; the gathers take_rows, take_lanes and take_rows_loop bit
+for bit against theirs (NaN where NaN) at the probe's shapes, at the
+sweep's message gather ([32768, 128] by 524,288 indices; lanes [32768,
+512] by [32768, 128]) and with indices past either end, beside
+index_select / torch.gather; it checks every kernel's refusals, and runs
+spmm_pairs and spmm_seg forward and backward against autograd through
+their plain versions (dx and dw within 1e-4, exact launch counts).
 Phases 4-8 each run with every launch count set to 0 just before and
 read just after; each must launch the kernels of its path.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
@@ -189,30 +195,47 @@ def dense_bound_ms(B, N, widths):
     return bound_ms(nbytes, flops)
 
 
+def max_abs_err(got, want) -> float:
+    """Max abs difference, NaN against NaN counting as 0 (NaN against a
+    number stays NaN, which no tolerance admits)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    return float(torch.where(got.isnan() & want.isnan(), 0.0, diff).max())
+
+
+def bitwise_equal(a, b) -> bool:
+    """Equal bit for bit (a NaN equal to the same NaN)."""
+    if a.is_floating_point() and a.dtype == b.dtype:
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return torch.equal(a, b)
+
+
 def kernel_row(name, shape, main_path, kernel, plain, library, bound,
                tol=TOL_KERNEL):
     """Checks a kernel against its plain version (within tol, two launches
     bitwise equal) and times the kernel, the plain version and the library
-    call; emits and returns the row. Boolean outputs compare as 0/1."""
+    call; emits and returns the row. Boolean outputs compare as 0/1; a NaN
+    of both outputs at one place counts as equal (the gathers' fills)."""
     got = kernel()
     torch.cuda.synchronize()
     want = plain()
-    err = float((got.float() - want.float()).abs().max())
+    err = max_abs_err(got, want)
     again = kernel()
     torch.cuda.synchronize()
-    lib_err = float((library().float() - want.float()).abs().max())
+    lib_err = max_abs_err(library(), want)
     ms, call_ms = time_ms(kernel)
     plain_ms, plain_call_ms = time_ms(plain)
     library_ms, library_call_ms = time_ms(library)
     row = dict(kernel=name, **shape, main_path=main_path, max_abs_err=err,
-               bitwise_repeatable=bool(torch.equal(got, again)),
+               bitwise_repeatable=bitwise_equal(got, again),
                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                call_ms=call_ms, plain_call_ms=plain_call_ms,
                library_call_ms=library_call_ms,
                library_max_abs_err=lib_err, bound_ms=bound[0],
                bound_by=bound[1])
     emit("kernel", **row)
-    check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite")
+    check(bool(torch.isfinite(got[torch.isfinite(want)]).all()),
+          f"{name} {shape}: non-finite where the plain version is finite")
     check(err <= tol, f"{name} {shape}: max abs err {err} > {tol}")
     check(row["bitwise_repeatable"], f"{name} {shape}: two launches differ")
     return row
@@ -1299,6 +1322,200 @@ def variant_refusal_phase() -> None:
     emit("refuse", **refused)
 
 
+def win_case(case, B, N, F, cap, mode, seed, main_path):
+    """spmm_win against its plain version beside torch.sparse.mm on the
+    block-diagonal COO of the lanes that stay in their windows. "sweep":
+    the sweep's uniform edges bucketed at cap; "odd": raw lanes (sinks
+    outside their segment's window, sentinels, indices of N or more) as the
+    layout; "empty": all lanes -1."""
+    from gcm_tpu_torch.benchmarks.spmm_variants import block_diagonal_coo
+    from gcm_tpu_torch.ops.cuda import spmm_win as win_mod
+
+    n_win = N // 128
+    if case == "sweep":
+        x, edges, w = variant_inputs("wide", B, N, F, 8192, seed)
+        be, bw, counts = win_mod.bucket_by_sink_window(edges, w, N, cap=cap)
+        overflow = win_mod.window_overflow(counts, cap)
+        check(overflow is None, f"spmm_win {case}: {overflow}")
+    else:
+        x, be, bw = variant_inputs(case, B, N, F, n_win * cap, seed)
+    kept = win_mod.in_window(be, N, cap)
+    coo = block_diagonal_coo(kept, bw, N)
+    depth = lanes_per_sink(kept, N)
+    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    x2 = x.reshape(B * N, F)
+    with torch.no_grad():
+        row = kernel_row(
+            "spmm_win", dict(case=case, B=B, N=N, F=F, cap=cap, mode=mode),
+            main_path,
+            kernel=lambda: win_mod.spmm_win(x, be, bw, N, cap, dtype),
+            plain=lambda: win_mod.spmm_win_plain(x, be, bw, N, cap, dtype,
+                                                 depth),
+            library=lambda: torch.sparse.mm(coo, x2).reshape(B, N, F),
+            bound=bound_ms(4 * (2 * B * N * F + 3 * B * n_win * cap),
+                           2 * int(coo.values().numel()) * F),
+            tol=0.0)  # bitwise: both add in lane order
+    if case == "empty":
+        check(not bool(row["max_abs_err"]) and not bool(
+            win_mod.spmm_win(x, be, bw, N, cap, dtype).any()),
+              "spmm_win empty lanes: not zero")
+    return row
+
+
+WIN_CASES = [
+    # (case, B, N, F, cap, mode, main_path): the sweep's point at the JAX
+    # sweep's cap E/2, an odd shape (cap 500: one lane block, not a multiple
+    # of 128), an empty list
+    ("sweep", 64, 512, 128, 4096, "f32", True),
+    ("sweep", 64, 512, 128, 4096, "bf16", True),
+    ("odd", 3, 256, 13, 500, "f32", False),
+    ("odd", 3, 256, 13, 500, "bf16", False),
+    ("empty", 4, 128, 32, 64, "f32", False),
+]
+
+
+def gather_inputs(kernel, case, seed):
+    """(x, idx) on the card. "probe": the JAX probe's own inputs; "wide":
+    rows gather the sweep's messages (x the sweep's [B*N, F] = [32768, 128]
+    node rows, idx b*N + src of its B*E = 524,288 edges), lanes gather
+    [32768, 128] of [32768, 512]; "out of range": indices past either end
+    (-D-36, -D, -1, D+6 among them, D the gathered dimension)."""
+    rng = np.random.default_rng(seed)
+    lanes = kernel == "take_lanes"
+    if case == "probe":
+        if lanes:
+            x = np.arange(8 * 512, dtype=np.float32).reshape(8, 512)
+            idx = np.tile(np.array([[5, 3, 500, 0, 1, 2, 33, 7] * 16],
+                                   np.int32), (8, 1))
+        else:
+            x = np.arange(64 * 128, dtype=np.float32).reshape(64, 128)
+            idx = np.array([5, 3, 60, 0, 1, 2, 33, 7] * 16, np.int32)
+    elif case == "wide":
+        if lanes:
+            x = rng.standard_normal((32768, 512)).astype(np.float32)
+            idx = rng.integers(0, 512, (32768, 128)).astype(np.int32)
+        else:
+            B, N, F, E = 64, 512, 128, 8192
+            x = rng.standard_normal((B * N, F)).astype(np.float32)
+            src = rng.integers(0, N, (B, E))
+            idx = (src + N * np.arange(B)[:, None]).astype(np.int32).ravel()
+    else:
+        R, C = (8, 512) if lanes else (64, 128)
+        x = rng.standard_normal((R, C)).astype(np.float32)
+        D = C if lanes else R
+        idx = rng.integers(-D - 40, D + 40, (R, 128) if lanes else 128)
+        idx.flat[:4] = [-D - 36, -D, -1, D + 6]
+        idx = idx.astype(np.int32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(idx).cuda()
+
+
+def gather_case(kernel, case, seed, main_path):
+    """A gather against its plain version, bitwise (NaN where NaN), beside
+    index_select (rows) or torch.gather (lanes) on the index wrapped and
+    clamped into range (a library gather asserts on the card past the
+    end)."""
+    from gcm_tpu_torch.ops.cuda import gather as gather_mod
+
+    x, idx = gather_inputs(kernel, case, seed)
+    R, C = x.shape
+    fn = getattr(gather_mod, kernel)
+    plain = getattr(gather_mod, f"{kernel}_plain")
+    lanes = kernel == "take_lanes"
+    D = C if lanes else R
+    i = idx.long()
+    safe = torch.where(i < 0, i + D, i).clamp(0, D - 1)
+    if lanes:
+        library = lambda: torch.gather(x, 1, safe)  # noqa: E731
+        nbytes = 4 * (R * C + 2 * idx.numel())
+    else:
+        safe = safe.int()
+        library = lambda: x.index_select(0, safe)  # noqa: E731
+        nbytes = 4 * (R * C + idx.numel() + idx.numel() * C)
+    row = kernel_row(
+        kernel, dict(case=case, x=[R, C], idx=list(idx.shape)), main_path,
+        kernel=lambda: fn(x, idx), plain=lambda: plain(x, idx),
+        library=library, bound=bound_ms(nbytes, 0), tol=0.0)
+    got, want = fn(x, idx), plain(x, idx)
+    check(bitwise_equal(got, want),
+          f"{kernel} {case}: not bit for bit the plain version's")
+    fills = int(want.isnan().sum())
+    check((fills > 0) == (case == "out of range"
+                          and kernel != "take_rows_loop"),
+          f"{kernel} {case}: {fills} NaN fills")
+    return row
+
+
+GATHER_CASES = [
+    # (kernel, case, main_path): the probe's own inputs (what the sweep's
+    # probe runs), the sweep's message gather, indices past either end
+    (kernel, case, case == "probe")
+    for kernel in ("take_rows", "take_lanes", "take_rows_loop")
+    for case in ("probe", "wide", "out of range")
+]
+
+
+def win_gather_refusal_phase() -> None:
+    """Inputs spmm_win and the gathers do not take raise on the card before
+    any launch: float64, int64 indices, wrong shapes, non-contiguous or CPU
+    tensors, a graph off the 128 grid, a cap above 512 off the 512 grid,
+    an unknown dtype and a tracked input."""
+    from gcm_tpu_torch.ops.cuda import gather as gather_mod
+    from gcm_tpu_torch.ops.cuda import spmm_win as win_mod
+
+    x, edges, w = variant_inputs("wide", 2, 256, 8, 64, seed=94)
+    be, bw, _ = win_mod.bucket_by_sink_window(edges, w, 256, cap=64)
+    be6, bw6, _ = win_mod.bucket_by_sink_window(edges, w, 256, cap=600)
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+    win = win_mod.spmm_win
+    rows, lanes = gather_mod.take_rows, gather_mod.take_lanes
+    loop = gather_mod.take_rows_loop
+    g = x[0]
+    gi = torch.zeros(16, dtype=torch.int32, device="cuda")
+    gl = torch.zeros((256, 4), dtype=torch.int32, device="cuda")
+    cases = {
+        "win_float64": lambda: win(x.double(), be, bw.double(), 256, 64),
+        "win_int64_edges": lambda: win(x, be.long(), bw, 256, 64),
+        "win_wrong_shape": lambda: win(x, be, bw[:, :-1], 256, 64),
+        "win_non_contiguous": lambda: win(xt, be, bw, 256, 64),
+        "win_cpu_weights": lambda: win(x, be, bw.cpu(), 256, 64),
+        "win_nodes_200": lambda: win(x[:, :200].contiguous(), be, bw, 200,
+                                     64),
+        "win_cap_600": lambda: win(x, be6, bw6, 256, 600),
+        "win_float16": lambda: win(x, be, bw, 256, 64, torch.float16),
+        "win_requires_grad": lambda: win(x.clone().requires_grad_(), be, bw,
+                                         256, 64),
+        "rows_float64": lambda: rows(g.double(), gi),
+        "rows_int64_idx": lambda: rows(g, gi.long()),
+        "rows_non_contiguous": lambda: rows(g.t(), gi),
+        "rows_cpu_idx": lambda: rows(g, gi.cpu()),
+        "rows_3d_x": lambda: rows(x, gi),
+        "lanes_float64": lambda: lanes(g.double(), gl),
+        "lanes_int64_idx": lambda: lanes(g, gl.long()),
+        "lanes_rows_differ": lambda: lanes(g, gl[:7]),
+        "lanes_non_contiguous_idx": lambda: lanes(
+            g, gl.t().contiguous().t()),
+        "loop_float64": lambda: loop(g.double(), gi),
+        "loop_int64_idx": lambda: loop(g, gi.long()),
+        "loop_non_contiguous": lambda: loop(g.t(), gi),
+        "loop_requires_grad": lambda: loop(g.clone().requires_grad_(), gi),
+    }
+    wrappers = (win, rows, lanes, loop)
+    launches = [f.launches for f in wrappers]
+    refused = {}
+    for case, call in cases.items():
+        try:
+            call()
+        except (ValueError, NotImplementedError) as e:
+            refused[case] = str(e)
+    check(sorted(refused) == sorted(cases),
+          f"inputs not refused: {sorted(set(cases) - set(refused))}")
+    check([f.launches for f in wrappers] == launches,
+          "a refused input was launched")
+    for case in ("win_requires_grad", "loop_requires_grad"):
+        check("no_grad" in refused[case], f"{case}: not refused as tracked")
+    emit("refuse", **refused)
+
+
 def gradient_phase(B=64, N=512, F=128, E=8192, seed=95) -> None:
     """spmm_pairs and spmm_seg forward and backward on the card against
     autograd through their plain versions on the card: out within
@@ -1356,17 +1573,22 @@ def gradient_phase(B=64, N=512, F=128, E=8192, seed=95) -> None:
 
 
 def sweep_phase(card: str) -> None:
-    """The SpMM variant sweep at its full width (B=64, N=512, E=8192,
-    F=128), every row within its check."""
-    from gcm_tpu_torch.benchmarks.spmm_variants import run_sweep
+    """The SpMM variant sweep as its script runs it: the gather probe, every
+    gather "ok", then every row at its full width (B=64, N=512, E=8192,
+    F=128), every kernel row within its check, and no JAX row left out."""
+    from gcm_tpu_torch.benchmarks.spmm_variants import (probe_dynamic_gather,
+                                                        run_sweep)
 
+    probe = probe_dynamic_gather()
+    check(set(probe.values()) == {"ok"}, f"gather probe: {probe}")
     out = run_sweep()
     errors = {k: r["error"] for k, r in out["results"].items()
               if "error" in r and r["kernel"]}
     check(not errors, f"sweep rows failed: {errors}")
-    check(len(out["results"]) == 12, "the sweep ran "
-          f"{len(out['results'])} rows, expected 12")
-    emit("sweep", card=card, **out)
+    check(len(out["results"]) == 15, "the sweep ran "
+          f"{len(out['results'])} rows, expected 15")
+    check(out["not_ported"] == [], f"not ported: {out['not_ported']}")
+    emit("sweep", card=card, probe=probe, **out)
 
 
 # -- main ---------------------------------------------------------------------
@@ -1399,6 +1621,18 @@ KERNEL_META = {
     "spmm_onehot_dtype": dict(
         source="gcm_tpu_torch/csrc/spmm.cu",
         replaces="benchmarks/spmm_variants.py:177"),
+    "spmm_win": dict(
+        source="gcm_tpu_torch/csrc/spmm_win.cu",
+        replaces="benchmarks/spmm_variants.py:260"),
+    "take_rows": dict(
+        source="gcm_tpu_torch/csrc/gather.cu",
+        replaces="benchmarks/spmm_variants.py:287"),
+    "take_lanes": dict(
+        source="gcm_tpu_torch/csrc/gather.cu",
+        replaces="benchmarks/spmm_variants.py:287"),
+    "take_rows_loop": dict(
+        source="gcm_tpu_torch/csrc/gather.cu",
+        replaces="benchmarks/spmm_variants.py:287"),
 }
 
 
@@ -1420,12 +1654,15 @@ def main() -> int:
     from gcm_tpu_torch.ops import _build
     from gcm_tpu_torch.ops.cuda.dense_gconv import fused_dense_graph_conv
     from gcm_tpu_torch.ops.cuda.fused_gnn import fused_dense_gnn
+    from gcm_tpu_torch.ops.cuda.gather import (take_lanes, take_rows,
+                                               take_rows_loop)
     from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
     from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list, spmm_onehot_dtype
     from gcm_tpu_torch.ops.cuda.spmm2 import spmm_pairs
     from gcm_tpu_torch.ops.cuda.spmm_prefetch import spmm_prefetch
     from gcm_tpu_torch.ops.cuda.spmm_seg import spmm_seg
     from gcm_tpu_torch.ops.cuda.spmm_slots import spmm_slots
+    from gcm_tpu_torch.ops.cuda.spmm_win import spmm_win
 
     t0 = time.perf_counter()
     waited = _build.build_all()
@@ -1445,10 +1682,15 @@ def main() -> int:
              for i, case in enumerate(SDDMM_CASES)]
     rows += [variant_case(*case[:7], seed=i, main_path=case[7])
              for i, case in enumerate(VARIANT_CASES)]
+    rows += [win_case(*case[:6], seed=i, main_path=case[6])
+             for i, case in enumerate(WIN_CASES)]
+    rows += [gather_case(*case[:2], seed=i, main_path=case[2])
+             for i, case in enumerate(GATHER_CASES)]
     refusal_phase()
     sparse_refusal_phase()
     sddmm_refusal_phase()
     variant_refusal_phase()
+    win_gather_refusal_phase()
     gradient_phase()
 
     wrappers = {"fused_dense_gnn": fused_dense_gnn,
@@ -1457,14 +1699,18 @@ def main() -> int:
                 "sddmm_threshold_row": sddmm_threshold_row,
                 "spmm_pairs": spmm_pairs, "spmm_seg": spmm_seg,
                 "spmm_prefetch": spmm_prefetch,
-                "spmm_onehot_dtype": spmm_onehot_dtype}
+                "spmm_onehot_dtype": spmm_onehot_dtype,
+                "spmm_win": spmm_win,
+                "take_rows": take_rows, "take_lanes": take_lanes,
+                "take_rows_loop": take_rows_loop}
     paths = [  # (phase, the kernels its path launches)
         (serve_phase, ("fused_dense_gnn",)),
         (scan_phase, ("fused_dense_gnn", "fused_dense_graph_conv")),
         (sparse_phase, ("spmm_edge_list", "spmm_slots")),
         (selector_phase, ("fused_dense_gnn", "sddmm_threshold_row")),
         (sweep_phase, ("spmm_edge_list", "spmm_onehot_dtype", "spmm_pairs",
-                       "spmm_seg", "spmm_prefetch")),
+                       "spmm_seg", "spmm_prefetch", "spmm_win", "take_rows",
+                       "take_lanes", "take_rows_loop")),
     ]
     launches = dict.fromkeys(wrappers, 0)
     for phase, kernels in paths:

@@ -15,25 +15,30 @@ check's max abs error and the launches of its kernel.
 Rows (the JAX script's name in brackets):
   scatter          gather + scatter_add_ in plain torch     [xla_scatter]
   sorted           the same on edges sorted by sink         [xla_sorted]
+  sorted_hint      torch.segment_reduce of the sink-sorted messages, the
+                   library call that takes sortedness as given
+                                                            [xla_sorted_hint]
   cumsum           prefix sums of sink-sorted messages      [xla_cumsum]
   sparse_mm        torch.sparse.mm on the block-diagonal COO, the library
                    yardstick (no JAX row)
   edge_list_f32x2  ops/cuda/spmm.py::spmm_edge_list         [pallas_f32x2]
   onehot_f32/bf16  ops/cuda/spmm.py::spmm_onehot_dtype      [pallas_onehot,
                                                              pallas_bf16]
+  win_f32/bf16     ops/cuda/spmm_win.py, cap E/2 lanes per 128-sink window
+                                                            [pallas_win,
+                                                             pallas_win_bf16]
   seg              ops/cuda/spmm_seg.py, cap 2x the mean bucket load
                    rounded up to 128                        [pallas_seg]
   prefetch_nblk4/8 ops/cuda/spmm_prefetch.py, cap 2E/nblk   [pallas_prefetch_*]
   pairs_f32x2/bf16 ops/cuda/spmm2.py at the seg row's cap (not in the JAX
                    script; BASELINE.md records it at this point)
-So this sweep is the JAX script's default run less four of its rows, and
-the two cannot be compared row for row yet: the JAX script's
-xla_sorted_hint (an XLA scatter flag) has no torch counterpart, and its
-pallas_win and pallas_win_bf16 rows and the gather probe, which its
-default run also runs, are not ported yet. The last line lists them under
-`not_ported`.
+Before the rows, `main` prints {"probe": ...}: `probe_dynamic_gather` runs
+the three gathers of ops/cuda/gather.py on the JAX probe's own inputs.
+So this sweep is the JAX script's default run row for row, probe first,
+plus sparse_mm and the pairs rows; the last line's `not_ported` is empty.
 
     python -m gcm_tpu_torch.benchmarks.spmm_variants [--skip a,b]
+                                                     [--probe-only]
 
 runs on the CUDA card; `run_sweep(device="cpu")` runs the plain versions.
 """
@@ -49,6 +54,8 @@ import numpy as np
 import torch
 
 from gcm_tpu_torch.device import resolve_device
+from gcm_tpu_torch.ops.cuda.gather import (take_lanes, take_rows,
+                                           take_rows_loop)
 from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list, spmm_onehot_dtype
 from gcm_tpu_torch.ops.cuda.spmm2 import (W, bucket_edges_pairs,
                                           check_bucket_overflow, spmm_pairs)
@@ -56,13 +63,14 @@ from gcm_tpu_torch.ops.cuda.spmm_prefetch import (bucket_edges_sink_blocks,
                                                   spmm_prefetch,
                                                   spmm_prefetch_bucketed)
 from gcm_tpu_torch.ops.cuda.spmm_seg import bucket_edges_segments, spmm_seg
+from gcm_tpu_torch.ops.cuda.spmm_win import (bucket_by_sink_window, spmm_win,
+                                             window_overflow)
 from gcm_tpu_torch.ops.scatter import (edge_mask, edge_scatter_add,
                                        gather_nodes)
 
 ITERS = 20  # chained calls per timed round
 ROUNDS = 5  # timed rounds; the median is kept
-NOT_PORTED = ("pallas_win", "pallas_win_bf16", "probe_dynamic_gather",
-              "xla_sorted_hint")
+NOT_PORTED = ()  # rows of the JAX script with no counterpart here
 
 
 def make_edges(B, N, E, seed=1):
@@ -97,22 +105,67 @@ def sort_by_sink(edges, w, N):
             torch.gather(w, 1, order))
 
 
+def sorted_messages(x, edges, w):
+    """The weighted messages of a sink-sorted edge list [B,E,F], 0 on its
+    invalid lanes, and each sink's lane count [B,N+1] (the invalid lanes,
+    sorted last, counted in the last)."""
+    N = x.shape[1]
+    valid = edge_mask(edges)
+    sink = torch.where(valid, edges[:, 0].long(), N)
+    msgs = gather_nodes(x, edges[:, 1]) * w[..., None]
+    deg = torch.zeros((x.shape[0], N + 1), dtype=torch.long, device=x.device)
+    deg.scatter_add_(1, sink, torch.ones_like(sink))
+    return torch.where(valid[..., None], msgs, 0.0), deg
+
+
 def cumsum_sorted(x, edges, w):
     """Sink-sorted edges: each sink's sum is the difference of the prefix
     sums of the messages at its segment's two ends."""
     B, N, F = x.shape
-    valid = edge_mask(edges)
-    sink = torch.where(valid, edges[:, 0].long(), N)
-    msgs = gather_nodes(x, edges[:, 1]) * w[..., None]
-    msgs = torch.where(valid[..., None], msgs, 0.0)
+    msgs, deg = sorted_messages(x, edges, w)
     csum = torch.cat([torch.zeros((B, 1, F), dtype=x.dtype, device=x.device),
                       torch.cumsum(msgs, 1)], 1)
-    deg = torch.zeros((B, N + 1), dtype=torch.long, device=x.device)
-    deg.scatter_add_(1, sink, torch.ones_like(sink))
     hi = torch.cumsum(deg[:, :N], -1)
     lo = hi - deg[:, :N]
     return (torch.gather(csum, 1, hi[..., None].expand(-1, -1, F))
             - torch.gather(csum, 1, lo[..., None].expand(-1, -1, F)))
+
+
+def segment_sum_sorted(x, edges, w):
+    """Sink-sorted edges: one torch.segment_reduce over each batch
+    element's messages in segments of the sinks' lane counts (the invalid
+    lanes' segment cut off)."""
+    msgs, deg = sorted_messages(x, edges, w)
+    return torch.segment_reduce(msgs, "sum", lengths=deg, axis=1)[:, :-1]
+
+
+def probe_dynamic_gather(device=None):
+    """The JAX script's capability probe on its own inputs: take_rows,
+    take_lanes and take_rows_loop against x[idx] and take_along_dim ->
+    {"take_rows", "take_lanes", "dynslice_loop"}: "ok", "WRONG" or
+    "fail: <error>", as the JAX probe reports."""
+    dev = resolve_device(device)
+    x = torch.arange(64 * 128, dtype=torch.float32, device=dev).reshape(64,
+                                                                        128)
+    idx = torch.tensor([5, 3, 60, 0, 1, 2, 33, 7] * 16, dtype=torch.int32,
+                       device=dev)
+    xT = torch.arange(8 * 512, dtype=torch.float32, device=dev).reshape(8, 512)
+    idxl = torch.tensor([[5, 3, 500, 0, 1, 2, 33, 7] * 16], dtype=torch.int32,
+                        device=dev).repeat(8, 1)
+    cases = {
+        "take_rows": (lambda: take_rows(x, idx), lambda: x[idx.long()]),
+        "take_lanes": (lambda: take_lanes(xT, idxl),
+                       lambda: torch.take_along_dim(xT, idxl.long(), 1)),
+        "dynslice_loop": (lambda: take_rows_loop(x, idx),
+                          lambda: x[idx.long()]),
+    }
+    results = {}
+    for name, (got, want) in cases.items():
+        try:
+            results[name] = "ok" if torch.equal(got(), want()) else "WRONG"
+        except Exception as ex:  # noqa: BLE001 - reported, as in JAX
+            results[name] = f"fail: {type(ex).__name__}: {str(ex)[:160]}"
+    return results
 
 
 def pair_cap(N, E):
@@ -192,6 +245,7 @@ def run_sweep(B=64, N=512, E=8192, F=128, device=None, skip=(), seed=1):
         sedges, sw = sort_by_sink(edges, w, N)
         run("scatter", lambda x: edge_scatter_add(x, edges, w))
         run("sorted", lambda x: edge_scatter_add(x, sedges, sw))
+        run("sorted_hint", lambda x: segment_sum_sorted(x, sedges, sw))
         run("cumsum", lambda x: cumsum_sorted(x, sedges, sw))
         coo = block_diagonal_coo(edges, w, N)
         run("sparse_mm", lambda x: torch.sparse.mm(
@@ -202,6 +256,13 @@ def run_sweep(B=64, N=512, E=8192, F=128, device=None, skip=(), seed=1):
                                   ("onehot_bf16", torch.bfloat16, 0.5)):
             run(name, lambda x, d=dtype: spmm_onehot_dtype(x, edges, w, d),
                 atol=atol, kernel=spmm_onehot_dtype)
+        win_cap = E // 2  # as the JAX script buckets its pallas_win rows
+        we, ww, counts = bucket_by_sink_window(edges, w, N, cap=win_cap)
+        for name, dtype, atol in (("win_f32", torch.float32, 1e-3),
+                                  ("win_bf16", torch.bfloat16, 0.5)):
+            run(name, lambda x, d=dtype: spmm_win(x, we, ww, N, win_cap, d),
+                atol=atol, kernel=spmm_win,
+                overflow=window_overflow(counts, win_cap))
 
         cap = pair_cap(N, E)
         be, bw, begin, end, tot = bucket_edges_segments(edges, w, N, cap)
@@ -232,7 +293,12 @@ def run_sweep(B=64, N=512, E=8192, F=128, device=None, skip=(), seed=1):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip", default="", help="comma-separated rows")
+    ap.add_argument("--probe-only", action="store_true",
+                    help="run the gather probe alone")
     args = ap.parse_args(argv)
+    print(json.dumps({"probe": probe_dynamic_gather()}), flush=True)
+    if args.probe_only:
+        return
     out = run_sweep(skip=tuple(filter(None, args.skip.split(","))))
     print(json.dumps(out), flush=True)
 

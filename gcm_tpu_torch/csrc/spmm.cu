@@ -14,19 +14,11 @@
 // a microsecond at 3.35 TB/s) and in practice by latency, since a call is a
 // few hundred small blocks.
 //
-// What the design does about it: one block owns one batch element, a tile
-// of kRows sink rows and kFeat feature columns. It streams the batch
-// element's edge list in chunks of kChunk lanes; each chunk is compacted in
-// shared memory (warp ballots, order kept) to the lanes whose sink falls in
-// the tile, and the warp that owns that sink row adds w * x[src] to its
-// registers, each lane holding up to 4 feature columns of up to 4 rows.
-// Every output element is summed by one thread in edge order and written
-// once: no atomics, so two launches give bitwise-equal results. The block
-// re-reads the edge list once per sink tile; a sink-sorted (CSR) pass would
-// avoid that and is left to a later version. Each message is w * x
-// rounded to float32 and each add rounded (__fmul_rn, __fadd_rn: no FMA
-// contraction), in lane order, so the plain version, which adds in the same
-// order, agrees with it bitwise.
+// What the design does about it: the tile kernel of edge_tile.cuh, each
+// block reading the whole edge list of its batch element (one block per
+// batch element, tile of sink rows and feature columns; lanes compacted in
+// shared memory in order; each output summed by one thread in lane order,
+// each product and add rounded once, no atomics).
 //
 // The same kernel, with kBf16 set, also replaces the bf16 mode of the
 // one-hot SpMM experiment benchmarks/spmm_variants.py::pallas_onehot_dtype
@@ -36,120 +28,7 @@
 // rounding points of that kernel's one-hot matmuls (bf16 messages sum nearly
 // exactly in float32). The bound is the same.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 32;                      // sink rows per block
-constexpr int kRowsPerWarp = kRows / kWarps;   // warp w owns rows w + 8 j
-constexpr int kColsPerLane = 4;
-constexpr int kFeat = 32 * kColsPerLane;       // feature columns per block
-constexpr int kChunk = kThreads;               // edge lanes staged per round
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-spmm_edge_list_kernel(const float* __restrict__ x, const int* __restrict__ edges,
-                      const float* __restrict__ w, float* __restrict__ out,
-                      int N, int F, int E) {
-  __shared__ int s_row[kChunk];
-  __shared__ int s_src[kChunk];
-  __shared__ float s_w[kChunk];
-  __shared__ int s_count[kWarps];
-
-  const int b = blockIdx.z;
-  const int row0 = blockIdx.x * kRows;
-  const int f0 = blockIdx.y * kFeat;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int* sink_b = edges + size_t(b) * 2 * E;
-  const int* src_b = sink_b + E;
-  const float* w_b = w + size_t(b) * E;
-  const float* x_b = x + size_t(b) * N * F;
-
-  float acc[kRowsPerWarp][kColsPerLane];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int q = 0; q < kColsPerLane; ++q) acc[r][q] = 0.0f;
-
-  for (int base = 0; base < E; base += kChunk) {
-    // compact this chunk to the lanes that land in the tile, in lane order
-    const int e = base + tid;
-    int r = 0, s = 0;
-    float wt = 0.0f;
-    bool keep = false;
-    if (e < E) {
-      const int sink = sink_b[e];
-      s = src_b[e];
-      r = sink - row0;
-      keep = sink >= 0 && sink < N && r >= 0 && r < kRows && s >= 0 && s < N;
-      if (keep) wt = w_b[e];
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-    if (lane == 0) s_count[warp] = __popc(ballot);
-    __syncthreads();
-    int offset = 0, total = 0;
-#pragma unroll
-    for (int i = 0; i < kWarps; ++i) {
-      const int c = s_count[i];
-      offset += i < warp ? c : 0;
-      total += c;
-    }
-    if (keep) {
-      const int j = offset + __popc(ballot & ((1u << lane) - 1u));
-      s_row[j] = r;
-      s_src[j] = s;
-      s_w[j] = wt;
-    }
-    __syncthreads();
-
-    // each warp adds the lanes whose sink row it owns (a warp-uniform test)
-    for (int j = 0; j < total; ++j) {
-      const int rr = s_row[j];
-      if ((rr % kWarps) != warp) continue;
-      const int slot = rr / kWarps;
-      const float wj = s_w[j];
-      const float* xrow = x_b + size_t(s_src[j]) * F;
-#pragma unroll
-      for (int q = 0; q < kColsPerLane; ++q) {
-        const int f = f0 + lane + 32 * q;
-        if (f < F) {
-          const float xv = __ldg(xrow + f);
-#pragma unroll
-          for (int sl = 0; sl < kRowsPerWarp; ++sl) {
-            if (sl != slot) continue;
-            if constexpr (kBf16)  // the message rounded twice, an f32 add
-              acc[sl][q] = __fadd_rn(
-                  acc[sl][q], round_bf16(__fmul_rn(wj, round_bf16(xv))));
-            else
-              acc[sl][q] = __fadd_rn(acc[sl][q], __fmul_rn(wj, xv));
-          }
-        }
-      }
-    }
-    __syncthreads();  // the staging arrays are rewritten by the next chunk
-  }
-
-#pragma unroll
-  for (int sl = 0; sl < kRowsPerWarp; ++sl) {
-    const int row = row0 + warp + kWarps * sl;
-    if (row >= N) continue;
-    float* orow = out + (size_t(b) * N + row) * F;
-#pragma unroll
-    for (int q = 0; q < kColsPerLane; ++q) {
-      const int f = f0 + lane + 32 * q;
-      if (f < F) orow[f] = acc[sl][q];
-    }
-  }
-}
-
-}  // namespace
+#include "edge_tile.cuh"
 
 namespace {
 
@@ -157,14 +36,8 @@ int launch(bool bf16, const void* x, const void* edges, const void* w,
            void* out, int B, int N, int F, int E, int device, void* stream) {
   if (B < 1 || B > 65535 || N < 1 || F < 1 || E < 1)
     return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((N + kRows - 1) / kRows, (F + kFeat - 1) / kFeat, B);
-  auto kernel = bf16 ? spmm_edge_list_kernel<true> : spmm_edge_list_kernel<false>;
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(edges),
-      static_cast<const float*>(w), static_cast<float*>(out), N, F, E);
-  return int(cudaGetLastError());
+  return edge_tile::launch(bf16, x, edges, w, out, B, N, F, E, E, 0, device,
+                           stream);
 }
 
 }  // namespace

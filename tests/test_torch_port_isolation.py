@@ -12,7 +12,8 @@ import pytest
 import torch
 
 import gcm_tpu_torch as g
-from gcm_tpu_torch.benchmarks.spmm_variants import run_sweep
+from gcm_tpu_torch.benchmarks.spmm_variants import (probe_dynamic_gather,
+                                                    run_sweep)
 
 torch.set_num_threads(1)
 
@@ -72,12 +73,14 @@ def _cpu_model():
     lambda: g.DenseGCM(g.DenseGNN([g.DenseGraphConv(4, 4, device="cpu")]),
                        edge_selectors=g.CosineEdge(0.5)),
     lambda: run_sweep(),
+    lambda: probe_dynamic_gather(),
 ], ids=["readme_dense_gcm", "Linear", "DenseGraphConv", "DenseGCM",
         "SessionServer", "resolve_device", "readme_sparse_gcm", "GraphConv",
         "GCNConv", "SparseGCM", "LayerNorm", "LearnedEdge",
         "CosineEdge_learned", "SpatialEdge_learned",
         "TemporalBackedge_learned", "PositionalEncoding",
-        "RelativePositionalEncoding", "DenseGCM_cosine", "run_sweep"])
+        "RelativePositionalEncoding", "DenseGCM_cosine", "run_sweep",
+        "probe_dynamic_gather"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")

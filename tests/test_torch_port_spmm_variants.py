@@ -1,10 +1,11 @@
 """The port's SpMM variants (gcm_tpu_torch/ops/cuda/spmm2.py, spmm_seg.py,
-spmm_prefetch.py, spmm.py::spmm_onehot_dtype) and its SpMM sweep
+spmm_prefetch.py, spmm_win.py, spmm.py::spmm_onehot_dtype), its gathers
+(ops/cuda/gather.py) and its SpMM sweep
 (gcm_tpu_torch/benchmarks/spmm_variants.py) against the JAX package: the
 Pallas kernels run in interpret mode on the CPU, as
-tests/test_pallas_kernels.py runs them, and the one-hot experiment of
-benchmarks/spmm_variants.py is loaded from its file with its shape globals
-set to the test's.
+tests/test_pallas_kernels.py runs them, and the one-hot, sink-window and
+gather-probe experiments of benchmarks/spmm_variants.py are loaded from its
+file with its shape globals set to the test's.
 
 On the CPU the wrappers take their plain PyTorch versions; the CUDA kernels
 themselves are checked against those plain versions on the card by
@@ -17,7 +18,8 @@ chip_smoke.py. Tolerances, by what differs:
   magnitude; the port sums each segment directly;
 - everything else (the 'bf16' modes included, where both sides round the
   same float32 message to bf16): 1e-5, the summation order;
-- the integer layouts of the bucketing helpers: exactly equal.
+- the integer layouts of the bucketing helpers and the gathers (copies,
+  NaN where NaN): exactly equal.
 
 Cases of one check run in a loop inside one test (the failure message names
 the case), as in tests/test_torch_port_sparse_kernels.py.
@@ -38,10 +40,14 @@ from gcm_tpu.ops.pallas import spmm_seg as jax_seg
 from gcm_tpu_torch.benchmarks import spmm_variants as sweep_mod
 from gcm_tpu_torch.benchmarks.spmm_variants import NOT_PORTED, run_sweep
 from gcm_tpu_torch.ops import _build
+from gcm_tpu_torch.ops.cuda import gather as gather_mod
 from gcm_tpu_torch.ops.cuda import spmm as spmm_mod
 from gcm_tpu_torch.ops.cuda import spmm2 as pairs_mod
 from gcm_tpu_torch.ops.cuda import spmm_prefetch as prefetch_mod
 from gcm_tpu_torch.ops.cuda import spmm_seg as seg_mod
+from gcm_tpu_torch.ops.cuda import spmm_win as win_mod
+from gcm_tpu_torch.ops.cuda.gather import (take_lanes, take_rows,
+                                           take_rows_loop)
 from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list, spmm_onehot_dtype
 from gcm_tpu_torch.ops.cuda.spmm2 import (bucket_edges_pairs,
                                           check_bucket_overflow, spmm_pairs,
@@ -51,6 +57,8 @@ from gcm_tpu_torch.ops.cuda.spmm_prefetch import (bucket_edges_sink_blocks,
                                                   spmm_prefetch_bucketed)
 from gcm_tpu_torch.ops.cuda.spmm_seg import (bucket_edges_segments, spmm_seg,
                                              spmm_seg_T)
+from gcm_tpu_torch.ops.cuda.spmm_win import (bucket_by_sink_window, spmm_win,
+                                             window_overflow)
 
 torch.set_num_threads(1)
 
@@ -224,6 +232,138 @@ def test_spmm_onehot_dtype_matches_pallas(monkeypatch):
         spmm_edge_list(*t(x, edges, w)).numpy())
 
 
+def test_bucket_by_sink_window_matches_jax(monkeypatch):
+    """bucket_by_sink_window gives the JAX experiment's layout and weights
+    exactly, with overflowing windows, sentinels, sinks and sources of N or
+    more, and the default cap; its counts hold every valid lane of each
+    window, and window_overflow names the windows past the cap."""
+    for B, N, E, cap, seed in [(2, 256, 300, 100, 20),   # overflow
+                               (2, 384, 700, None, 21),  # cap = E
+                               (3, 256, 512, 512, 22)]:
+        sweep = load_jax_sweep(monkeypatch, B, N, E, 4)
+        _, edges, w = graph(B, N, E, 4, seed)
+        edges[0, 0, 5::50] = N + 3
+        edges[-1, 1, 6::50] = N + 140
+        got = bucket_by_sink_window(*t(edges, w), N, cap=cap)
+        want = sweep.bucket_by_sink_window(*j(edges, w), cap=cap)
+        assert_same(got[:2], want, f"N={N} cap={cap}")
+        assert all(a.is_contiguous() for a in got)
+        sink = edges[:, 0].astype(np.int64)
+        ok = (sink >= 0) & (edges[:, 1] >= 0) & (sink < N)
+        counts = np.stack([((sink // 128 == k) & ok).sum(-1)
+                           for k in range(N // 128)], -1)
+        np.testing.assert_array_equal(got[2].numpy(), counts)
+        cap = E if cap is None else cap
+        assert (window_overflow(got[2], cap) is None) == (counts.max() <= cap)
+    assert "overflow" in window_overflow(got[2], 1)
+
+
+def test_spmm_win_matches_pallas(monkeypatch):
+    """spmm_win (float32, bf16) against pallas_win in interpret mode at
+    caps of one and two lane blocks, on bucketed lanes with sources of N or
+    more, and on raw lanes whose sinks leave their windows; on a lossless
+    bucketing it is, bitwise, the edge-list (one-hot) SpMM of the graph."""
+    B, N, E, F = 2, 256, 512, 16
+    sweep = load_jax_sweep(monkeypatch, B, N, E, F)
+    x, edges, w = graph(B, N, E, F, seed=23)
+    edges[0, 1, 9::40] = N + 1
+    rng = np.random.default_rng(24)
+    raw = rng.integers(-1, N + 5, (B, 2, 2 * 512)).astype(np.int32)
+    cases = {f"cap {cap}": (*bucket_by_sink_window(*t(edges, w), N,
+                                                   cap=cap)[:2], cap)
+             for cap in (512, 1024)}
+    cases["raw lanes"] = (*t(raw, rng.uniform(0.5, 1.5, (B, 1024))
+                             .astype(np.float32)), 512)
+    for name, (be, bw, cap) in cases.items():
+        for dtype, jdtype in ((torch.float32, jnp.float32),
+                              (torch.bfloat16, jnp.bfloat16)):
+            want = sweep.pallas_win(*j(x, be.numpy(), bw.numpy()), jdtype,
+                                    cap=cap)
+            got = spmm_win(torch.from_numpy(x), be, bw, N, cap, dtype)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=TOL, rtol=0,
+                                       err_msg=f"{name} {dtype}")
+            assert got.dtype == torch.float32
+            if name != "raw lanes":
+                np.testing.assert_array_equal(
+                    got.numpy(), spmm_onehot_dtype(*t(x, edges, w),
+                                                   dtype).numpy())
+
+
+def probe_kernels(M):
+    """The three Pallas kernels of the JAX script's probe_dynamic_gather
+    (benchmarks/spmm_variants.py:295-346; closures there), for M indices,
+    in interpret mode."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    def k_rows(x_ref, i_ref, o_ref):
+        o_ref[:] = jnp.take(x_ref[:], i_ref[:], axis=0)
+
+    def k_lanes(x_ref, i_ref, o_ref):
+        o_ref[:] = jnp.take_along_axis(x_ref[:], i_ref[:], axis=1)
+
+    def k_dyn_rows(x_ref, i_ref, o_ref):
+        def body(j, _):
+            o_ref[j, :] = x_ref[i_ref[j], :]
+            return 0
+        jax.lax.fori_loop(0, M, body, 0)
+
+    def call(kernel, idx_space):
+        def run(x, idx):
+            shape = (idx.shape[0], x.shape[1]) if idx.ndim == 1 else idx.shape
+            return pl.pallas_call(
+                kernel, out_shape=jax.ShapeDtypeStruct(shape, jnp.float32),
+                in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM),
+                          pl.BlockSpec(memory_space=idx_space)],
+                out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+                interpret=True)(x, idx)
+        return run
+
+    return {take_rows: call(k_rows, pltpu.VMEM),
+            take_lanes: call(k_lanes, pltpu.VMEM),
+            take_rows_loop: call(k_dyn_rows, pltpu.SMEM)}
+
+
+def test_gathers_match_pallas_probes():
+    """take_rows, take_lanes and take_rows_loop equal the probe's Pallas
+    kernels at the probe's shapes and at odd ones, with indices past either
+    end: a NaN where jnp.take fills, wrapped or clamped rows where the
+    Pallas kernels wrap or clamp."""
+    rng = np.random.default_rng(25)
+    for (R, C), M in [((64, 128), 128), ((40, 13), 56)]:
+        x = rng.standard_normal((R, C)).astype(np.float32)
+        idx = rng.integers(-R - 8, R + 8, M).astype(np.int32)
+        idx[:4] = [R + 6, -1, -R - 36, -R]
+        idxl = rng.integers(-C - 88, C + 88, (R, M)).astype(np.int32)
+        idxl[0, :2] = [C + 88, -1]
+        kernels = probe_kernels(M)
+        for fn, i in ((take_rows, idx), (take_lanes, idxl),
+                      (take_rows_loop, idx)):
+            want = np.asarray(kernels[fn](*j(x, i)))
+            got = fn(*t(x, i)).numpy()
+            np.testing.assert_array_equal(got, want,
+                                          err_msg=f"{fn.__name__} {R}x{C}")
+            assert np.isnan(got).any() == (fn is not take_rows_loop)
+    x = np.arange(64 * 2, dtype=np.float32).reshape(64, 2)
+    idx = np.array([70, -1, -100, -64], np.int32)
+    np.testing.assert_array_equal(take_rows_loop(*t(x, idx)).numpy(),
+                                  x[[63, 63, 0, 0]])
+    got = take_rows(*t(x, idx)).numpy()
+    assert np.isnan(got[[0, 2]]).all()
+    np.testing.assert_array_equal(got[[1, 3]], x[[63, 0]])
+
+
+def test_probe_matches_jax(monkeypatch):
+    """The port's probe_dynamic_gather on the CPU reports what the JAX
+    script's reports in interpret mode: every gather "ok"."""
+    sweep = load_jax_sweep(monkeypatch, 2, 128, 128, 8)
+    got = sweep_mod.probe_dynamic_gather(device="cpu")
+    assert got == sweep.probe_dynamic_gather()
+    assert got == dict.fromkeys(("take_rows", "take_lanes", "dynslice_loop"),
+                                "ok")
+
+
 def test_gradients_match_jax():
     """torch.autograd through spmm_pairs and spmm_seg against jax.grad
     through their custom VJPs: dx, and dw lane by lane in the bucketed
@@ -319,7 +459,9 @@ def test_plain_versions_add_in_lane_order():
     kernel computes (the chip check then holds kernel and plain version
     bitwise equal); a depth above the most lanes into one row, as a caller
     may pass it, changes nothing; spmm_seg's walk of its tables is lane
-    order, so it equals spmm_pairs on the same sink-sorted layout."""
+    order, so it equals spmm_pairs on the same sink-sorted layout; the
+    window layout keeps each sink's lanes in order, so spmm_win's plain
+    version sums exactly the edge list's lane-by-lane sum."""
     B, N, E, F, cap = 2, 256, 900, 5, 256
     x, edges, w = graph(B, N, E, F, seed=12)
     edges[:, 0, :150] = 9  # a segment over two 128-lane chunks
@@ -332,6 +474,10 @@ def test_plain_versions_add_in_lane_order():
         "edge_list": lambda d: spmm_mod.spmm_edge_list_plain(tx, te, tw, d),
         "onehot_f32": lambda d: spmm_mod.spmm_onehot_dtype_plain(
             tx, te, tw, torch.float32, d)}
+    we, ww, counts = bucket_by_sink_window(te, tw, N, cap=512)
+    assert int(counts.max()) <= 512
+    plains["win"] = lambda d: win_mod.spmm_win_plain(tx, we, ww, N, 512,
+                                                     depth=d)
     for name, plain in plains.items():
         for depth in (None, 160, 400):
             np.testing.assert_array_equal(plain(depth).numpy(), want,
@@ -374,9 +520,9 @@ def test_plain_versions_add_in_lane_order():
 
 def test_guards():
     """The overflow guards raise; the wrappers refuse a graph that is not a
-    whole number of 128-node windows, a cap that is not a multiple of 128,
-    wrong layout shapes, unknown modes and (forward-only entries) inputs
-    that autograd tracks."""
+    whole number of 128-node windows, a cap that is not a multiple of 128
+    (of 512 above 512 for spmm_win), wrong layout or gather shapes, unknown
+    modes and (forward-only entries) inputs that autograd tracks."""
     _, edges, w = graph(2, 128, 300, 4, seed=11, holes=False)
     _, _, counts = bucket_edges_pairs(*t(edges, w), 128, 128)
     assert int(counts.max()) > 128
@@ -408,6 +554,28 @@ def test_guards():
         "prefetch blocks": lambda: spmm_prefetch(x, *t(edges, w),
                                                  n_blocks=3),
     }
+    we, ww, _ = bucket_by_sink_window(*t(edges, w), 128, cap=512)
+    x2 = torch.zeros(4, 2)
+    raises.update({
+        "win N not a multiple of 128": lambda: spmm_win(
+            torch.zeros(2, 192, 4), we, ww, 192, 512),
+        "win cap above 512, not a multiple": lambda: spmm_win(
+            x, *bucket_by_sink_window(*t(edges, w), 128, cap=600)[:2], 128,
+            600),
+        "win layout of another cap": lambda: spmm_win(x, we, ww, 128, 256),
+        "win x of another N": lambda: spmm_win(x, we, ww, 256, 512),
+        "win float16": lambda: spmm_win(x, we, ww, 128, 512, torch.float16),
+        "window bucketing cap 0": lambda: bucket_by_sink_window(
+            *t(edges, w), 128, cap=0),
+        "take_rows 1-D x": lambda: take_rows(
+            torch.zeros(4), torch.zeros(2, dtype=torch.int32)),
+        "take_rows 2-D idx": lambda: take_rows(
+            x2, torch.zeros(1, 2, dtype=torch.int32)),
+        "take_lanes rows differ": lambda: take_lanes(
+            x2, torch.zeros(3, 2, dtype=torch.int32)),
+        "take_rows_loop empty x": lambda: take_rows_loop(
+            torch.zeros(0, 2), torch.zeros(2, dtype=torch.int32)),
+    })
     for name, call in raises.items():
         with pytest.raises(ValueError):
             call()
@@ -416,7 +584,10 @@ def test_guards():
     for call in (lambda: spmm_prefetch(tracked, *t(edges, w)),
                  lambda: spmm_pairs_T(tracked.transpose(1, 2), be, bw, 256),
                  lambda: spmm_seg_T(tracked.transpose(1, 2), *seg, 256),
-                 lambda: spmm_onehot_dtype(tracked, *t(edges, w))):
+                 lambda: spmm_onehot_dtype(tracked, *t(edges, w)),
+                 lambda: spmm_win(tracked, we, ww, 128, 512),
+                 lambda: take_rows(x2.requires_grad_(),
+                                   torch.zeros(1, dtype=torch.int32))):
         with pytest.raises(NotImplementedError, match="no_grad"):
             call()
 
@@ -431,7 +602,11 @@ def test_non_cpu_tensors_never_reach_the_plain_versions(monkeypatch):
     for mod, name in ((spmm_mod, "spmm_onehot_dtype_plain"),
                       (pairs_mod, "spmm_pairs_plain"),
                       (seg_mod, "spmm_seg_plain"),
-                      (prefetch_mod, "spmm_prefetch_plain")):
+                      (prefetch_mod, "spmm_prefetch_plain"),
+                      (win_mod, "spmm_win_plain"),
+                      (gather_mod, "take_rows_plain"),
+                      (gather_mod, "take_lanes_plain"),
+                      (gather_mod, "take_rows_loop_plain")):
         monkeypatch.setattr(mod, name, refuse)
     B, N, F, cap = 2, 128, 8, 128
 
@@ -452,6 +627,12 @@ def test_non_cpu_tensors_never_reach_the_plain_versions(monkeypatch):
         spmm_prefetch: lambda: spmm_prefetch_bucketed(
             x, meta(B, 4, 8, dtype=ints), meta(B, 4, 8, dtype=ints),
             meta(B, 4, 8), N),
+        spmm_win: lambda: spmm_win(x, meta(B, 2, cap, dtype=ints),
+                                   meta(B, cap), N, cap // (N // 128)),
+        take_rows: lambda: take_rows(meta(4, 8), meta(6, dtype=ints)),
+        take_lanes: lambda: take_lanes(meta(4, 8), meta(4, 6, dtype=ints)),
+        take_rows_loop: lambda: take_rows_loop(meta(4, 8),
+                                               meta(6, dtype=ints)),
     }
     for wrapper, call in calls.items():
         before = wrapper.launches
@@ -463,11 +644,11 @@ def test_non_cpu_tensors_never_reach_the_plain_versions(monkeypatch):
 def test_kernel_build(monkeypatch):
     """The new sources are built by build_all(); without the CUDA toolkit,
     loading their libraries raises instead of falling back."""
-    assert {"spmm", "spmm_pairs", "spmm_seg", "spmm_prefetch"} \
-        <= set(_build.sources())
+    assert {"spmm", "spmm_pairs", "spmm_seg", "spmm_prefetch", "spmm_win",
+            "gather"} <= set(_build.sources())
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
-    for mod in (pairs_mod, seg_mod, prefetch_mod):
+    for mod in (pairs_mod, seg_mod, prefetch_mod, win_mod, gather_mod):
         _build.load.cache_clear()
         mod._lib.cache_clear()
         with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -476,22 +657,23 @@ def test_kernel_build(monkeypatch):
 
 def test_run_sweep_on_cpu(capsys, monkeypatch):
     """The sweep runs every row at a small shape on the CPU (the plain
-    versions), each within its check, and names the JAX rows it leaves
-    out; a skipped row is not run."""
+    versions), each within its check, and leaves no JAX row out; a skipped
+    row is not run. N=512 gives the window rows, at the JAX script's cap of
+    E/2 lanes, room for twice their mean load, as at the sweep's point."""
     monkeypatch.setattr(sweep_mod, "ITERS", 1)
     monkeypatch.setattr(sweep_mod, "ROUNDS", 1)
-    out = run_sweep(B=2, N=256, E=512, F=16, device="cpu", skip=("sorted",))
+    out = run_sweep(B=2, N=512, E=1024, F=16, device="cpu", skip=("sorted",))
     rows = out["results"]
     assert set(rows) == {
-        "scatter", "cumsum", "sparse_mm", "edge_list_f32x2", "onehot_f32",
-        "onehot_bf16", "seg", "prefetch_nblk4", "prefetch_nblk8",
-        "pairs_f32x2", "pairs_bf16"}
+        "scatter", "sorted_hint", "cumsum", "sparse_mm", "edge_list_f32x2",
+        "onehot_f32", "onehot_bf16", "win_f32", "win_bf16", "seg",
+        "prefetch_nblk4", "prefetch_nblk8", "pairs_f32x2", "pairs_bf16"}
     for name, row in rows.items():
         assert "error" not in row, (name, row)
         assert row["edges_per_s"] > 0 and row["max_abs_err"] <= 1e-3 or \
             name.endswith("bf16"), (name, row)
     assert rows["onehot_bf16"]["max_abs_err"] > 0  # the rounding shows
-    assert out["cap"] == 256 and out["device"] == "cpu"
-    assert out["not_ported"] == list(NOT_PORTED)
-    assert {"pallas_win", "xla_sorted_hint"} <= set(NOT_PORTED)
+    assert rows["win_f32"]["launches"] == 0  # the plain version on the CPU
+    assert out["cap"] == 128 and out["device"] == "cpu"
+    assert out["not_ported"] == list(NOT_PORTED) == []
     assert capsys.readouterr().out.count("\n") == len(rows)
