@@ -186,6 +186,13 @@ def bound_ms(nbytes, flops):
                                        else "bytes")
 
 
+def lane_bytes(sinks):
+    """The bytes of an edge layout's int32 sink, int32 source and f32
+    weight lanes that a function must read: every lane's sink, and the
+    source and weight of each lane that is not padding (sink >= 0)."""
+    return 4 * sinks.numel() + 8 * int((sinks >= 0).sum())
+
+
 def dense_bound_ms(B, N, widths):
     """The dense stack's products at the f32 rate, or its bytes."""
     flops = sum(2 * B * (N * N * fi + 2 * N * fi * fo)
@@ -195,12 +202,13 @@ def dense_bound_ms(B, N, widths):
     return bound_ms(nbytes, flops)
 
 
-def max_abs_err(got, want) -> float:
-    """Max abs difference, NaN against NaN counting as 0 (NaN against a
-    number stays NaN, which no tolerance admits)."""
-    got, want = got.float(), want.float()
-    diff = (got - want).abs()
-    return float(torch.where(got.isnan() & want.isnan(), 0.0, diff).max())
+def max_abs_err(got, want, nan_fills=False) -> float:
+    """Max abs difference. With nan_fills, a NaN of both at one place counts
+    as 0 (NaN against a number stays NaN, which no tolerance admits)."""
+    diff = (got.float() - want.float()).abs()
+    if nan_fills:
+        diff = torch.where(got.isnan() & want.isnan(), 0.0, diff)
+    return float(diff.max())
 
 
 def bitwise_equal(a, b) -> bool:
@@ -211,18 +219,20 @@ def bitwise_equal(a, b) -> bool:
 
 
 def kernel_row(name, shape, main_path, kernel, plain, library, bound,
-               tol=TOL_KERNEL):
+               tol=TOL_KERNEL, nan_fills=False):
     """Checks a kernel against its plain version (within tol, two launches
     bitwise equal) and times the kernel, the plain version and the library
-    call; emits and returns the row. Boolean outputs compare as 0/1; a NaN
-    of both outputs at one place counts as equal (the gathers' fills)."""
+    call; emits and returns the row. Boolean outputs compare as 0/1. The
+    kernel's output must be finite, unless nan_fills (the gathers' fills
+    past the end): then it must be NaN exactly where the plain version's
+    is."""
     got = kernel()
     torch.cuda.synchronize()
     want = plain()
-    err = max_abs_err(got, want)
+    err = max_abs_err(got, want, nan_fills)
     again = kernel()
     torch.cuda.synchronize()
-    lib_err = max_abs_err(library(), want)
+    lib_err = max_abs_err(library(), want, nan_fills)
     ms, call_ms = time_ms(kernel)
     plain_ms, plain_call_ms = time_ms(plain)
     library_ms, library_call_ms = time_ms(library)
@@ -234,8 +244,11 @@ def kernel_row(name, shape, main_path, kernel, plain, library, bound,
                library_max_abs_err=lib_err, bound_ms=bound[0],
                bound_by=bound[1])
     emit("kernel", **row)
-    check(bool(torch.isfinite(got[torch.isfinite(want)]).all()),
-          f"{name} {shape}: non-finite where the plain version is finite")
+    if nan_fills:
+        check(torch.equal(got.isnan(), want.isnan()),
+              f"{name} {shape}: NaN off the plain version's places")
+    else:
+        check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite")
     check(err <= tol, f"{name} {shape}: max abs err {err} > {tol}")
     check(row["bitwise_repeatable"], f"{name} {shape}: two launches differ")
     return row
@@ -288,6 +301,24 @@ KERNEL_CASES = [
 ]
 
 
+def refuse_all(cases, wrappers, errors=(ValueError,)) -> dict:
+    """Calls each of cases, every one of which must raise one of errors
+    before any of wrappers launches; emits and returns the messages."""
+    launches = [f.launches for f in wrappers]
+    refused = {}
+    for case, call in cases.items():
+        try:
+            call()
+        except errors as e:
+            refused[case] = str(e)
+    check(sorted(refused) == sorted(cases),
+          f"inputs not refused: {sorted(set(cases) - set(refused))}")
+    check([f.launches for f in wrappers] == launches,
+          "a refused input was launched")
+    emit("refuse", **refused)
+    return refused
+
+
 def refusal_phase() -> None:
     """Inputs the kernels do not take raise on the card before any launch."""
     from gcm_tpu_torch.ops.cuda.dense_gconv import fused_dense_graph_conv
@@ -307,18 +338,7 @@ def refusal_phase() -> None:
         "float64": lambda: fused_dense_graph_conv(x.double(), adj.double(),
                                                   *(p.double() for p in flat)),
     }
-    launches = (fused_dense_gnn.launches, fused_dense_graph_conv.launches)
-    refused = {}
-    for case, call in cases.items():
-        try:
-            call()
-        except ValueError as e:
-            refused[case] = str(e)
-    check(sorted(refused) == sorted(cases),
-          f"inputs not refused: {sorted(set(cases) - set(refused))}")
-    check((fused_dense_gnn.launches, fused_dense_graph_conv.launches)
-          == launches, "a refused input was launched")
-    emit("refuse", **refused)
+    refuse_all(cases, (fused_dense_gnn, fused_dense_graph_conv))
 
 
 # -- phase 3, continued: the SpMM kernels ---------------------------------------
@@ -391,7 +411,8 @@ def spmm_case(case, B, N, F, E, seed, main_path):
         kernel=lambda: spmm_edge_list(x, edges, w),
         plain=lambda: spmm_edge_list_plain(x, edges, w, depth),
         library=lambda: torch.sparse.mm(coo, x2).reshape(B, N, F),
-        bound=bound_ms(4 * B * (2 * N * F + 3 * E), 2 * n_valid * F),
+        bound=bound_ms(4 * B * 2 * N * F + lane_bytes(edges[:, 0]),
+                       2 * n_valid * F),
         tol=0.0)  # bitwise: both add in lane order
     if case == "empty":
         check(not bool(row["max_abs_err"]), "empty edge list: not zero")
@@ -545,18 +566,7 @@ def sddmm_refusal_phase() -> None:
             one, one[:, :0, None].expand(1, 0, 1).contiguous(),
             torch.zeros(1, dtype=torch.int32, device="cuda"), 0.5),
     }
-    launches = sddmm_threshold_row.launches
-    refused = {}
-    for case, call in cases.items():
-        try:
-            call()
-        except ValueError as e:
-            refused[case] = str(e)
-    check(sorted(refused) == sorted(cases),
-          f"inputs not refused: {sorted(set(cases) - set(refused))}")
-    check(sddmm_threshold_row.launches == launches,
-          "a refused input was launched")
-    emit("refuse", **refused)
+    refuse_all(cases, (sddmm_threshold_row,))
 
 
 def sparse_refusal_phase() -> None:
@@ -580,18 +590,7 @@ def sparse_refusal_phase() -> None:
         "slots_wrong_shape": lambda: spmm_slots(x, srcs, ws, 128, 3),
         "slots_non_contiguous": lambda: spmm_slots(xt, srcs, ws, 128, 4),
     }
-    launches = (spmm_edge_list.launches, spmm_slots.launches)
-    refused = {}
-    for case, call in cases.items():
-        try:
-            call()
-        except ValueError as e:
-            refused[case] = str(e)
-    check(sorted(refused) == sorted(cases),
-          f"inputs not refused: {sorted(set(cases) - set(refused))}")
-    check((spmm_edge_list.launches, spmm_slots.launches) == launches,
-          "a refused input was launched")
-    emit("refuse", **refused)
+    refuse_all(cases, (spmm_edge_list, spmm_slots))
 
 
 # -- phase 4: the served flagship --------------------------------------------
@@ -1169,7 +1168,7 @@ def variant_case(kernel, case, B, N, F, E, mode, seed, main_path):
     n_valid = int(coo.values().numel())
     depth = lanes_per_sink(edges, N)
     shape = dict(case=case, B=B, N=N, F=F, E=E, mode=mode)
-    xy = 2 * B * N * F  # x read once, out written once
+    xy = 2 * B * N * F  # x read once, out written once; and the lanes
     if kernel == "spmm_pairs":
         cap = pair_cap(N, E)
         be, bw, counts = spmm2.bucket_edges_pairs(edges, w, N, cap)
@@ -1177,7 +1176,7 @@ def variant_case(kernel, case, B, N, F, E, mode, seed, main_path):
         shape["cap"] = cap
         run = (lambda: spmm2.spmm_pairs(x, be, bw, N, cap, mode),
                lambda: spmm2.spmm_pairs_plain(x, be, bw, cap, mode, depth))
-        nbytes = 4 * (xy + 3 * be.shape[0] * be.shape[2])
+        nbytes = 4 * xy + lane_bytes(be[:, 0])
     elif kernel == "spmm_seg":
         cap = pair_cap(N, E)
         be, bw, begin, end, tot = spmm_seg.bucket_edges_segments(edges, w, N,
@@ -1191,7 +1190,7 @@ def variant_case(kernel, case, B, N, F, E, mode, seed, main_path):
         run = (lambda: spmm_seg.spmm_seg(x, be, bw, begin, end, N, cap),
                lambda: spmm_seg.spmm_seg_plain(x, be, bw, begin, end, cap,
                                                depth))
-        nbytes = 4 * (xy + 3 * be.shape[0] * be.shape[2] + 2 * begin.numel())
+        nbytes = 4 * (xy + 2 * begin.numel()) + lane_bytes(be[:, 0])
     elif kernel == "spmm_prefetch":
         # 2E/nblk slots a block, as the sweep; elsewhere lossless (K = E)
         cap = 2 * E // mode if case == "sweep" else None
@@ -1203,13 +1202,13 @@ def variant_case(kernel, case, B, N, F, E, mode, seed, main_path):
                                                             N),
                lambda: spmm_prefetch.spmm_prefetch_plain(x, sl, src, pw, N,
                                                          depth))
-        nbytes = 4 * (xy + 3 * sl.numel())
+        nbytes = 4 * xy + lane_bytes(sl)
     else:
         dtype = torch.bfloat16 if mode == "bf16" else torch.float32
         run = (lambda: spmm_mod.spmm_onehot_dtype(x, edges, w, dtype),
                lambda: spmm_mod.spmm_onehot_dtype_plain(x, edges, w, dtype,
                                                         depth))
-        nbytes = 4 * (xy + 3 * B * E)
+        nbytes = 4 * xy + lane_bytes(edges[:, 0])
     x2 = x.reshape(B * N, F)
     with torch.no_grad():
         row = kernel_row(
@@ -1306,20 +1305,9 @@ def variant_refusal_phase() -> None:
     }
     wrappers = (pairs, seg, spmm_prefetch.spmm_prefetch, onehot,
                 spmm_mod.spmm_edge_list)
-    launches = [f.launches for f in wrappers]
-    refused = {}
-    for case, call in cases.items():
-        try:
-            call()
-        except (ValueError, NotImplementedError) as e:
-            refused[case] = str(e)
-    check(sorted(refused) == sorted(cases),
-          f"inputs not refused: {sorted(set(cases) - set(refused))}")
-    check([f.launches for f in wrappers] == launches,
-          "a refused input was launched")
+    refused = refuse_all(cases, wrappers, (ValueError, NotImplementedError))
     check("no_grad" in refused["prefetch_requires_grad"],
           "a tracked input into spmm_prefetch was not refused as such")
-    emit("refuse", **refused)
 
 
 def win_case(case, B, N, F, cap, mode, seed, main_path):
@@ -1352,7 +1340,7 @@ def win_case(case, B, N, F, cap, mode, seed, main_path):
             plain=lambda: win_mod.spmm_win_plain(x, be, bw, N, cap, dtype,
                                                  depth),
             library=lambda: torch.sparse.mm(coo, x2).reshape(B, N, F),
-            bound=bound_ms(4 * (2 * B * N * F + 3 * B * n_win * cap),
+            bound=bound_ms(4 * 2 * B * N * F + lane_bytes(be[:, 0]),
                            2 * int(coo.values().numel()) * F),
             tol=0.0)  # bitwise: both add in lane order
     if case == "empty":
@@ -1423,18 +1411,27 @@ def gather_case(kernel, case, seed, main_path):
     lanes = kernel == "take_lanes"
     D = C if lanes else R
     i = idx.long()
-    safe = torch.where(i < 0, i + D, i).clamp(0, D - 1)
+    wrapped = torch.where(i < 0, i + D, i)
+    safe = wrapped.clamp(0, D - 1)
+    # the bytes of x the indices touch (an index past either end of
+    # take_rows / take_lanes reads nothing): whole rows, or the distinct
+    # 32-byte sectors of the lanes gathered
+    touched = safe if kernel == "take_rows_loop" else wrapped
+    ok = (touched >= 0) & (touched < D)
     if lanes:
         library = lambda: torch.gather(x, 1, safe)  # noqa: E731
-        nbytes = 4 * (R * C + 2 * idx.numel())
+        rows = torch.arange(R, device=x.device)[:, None]
+        sectors = ((rows * C + touched) // 8)[ok]
+        x_bytes = 32 * int(torch.unique(sectors).numel())
     else:
         safe = safe.int()
         library = lambda: x.index_select(0, safe)  # noqa: E731
-        nbytes = 4 * (R * C + idx.numel() + idx.numel() * C)
+        x_bytes = 4 * C * int(torch.unique(touched[ok]).numel())
+    nbytes = x_bytes + 4 * idx.numel() * (2 if lanes else 1 + C)
     row = kernel_row(
         kernel, dict(case=case, x=[R, C], idx=list(idx.shape)), main_path,
         kernel=lambda: fn(x, idx), plain=lambda: plain(x, idx),
-        library=library, bound=bound_ms(nbytes, 0), tol=0.0)
+        library=library, bound=bound_ms(nbytes, 0), tol=0.0, nan_fills=True)
     got, want = fn(x, idx), plain(x, idx)
     check(bitwise_equal(got, want),
           f"{kernel} {case}: not bit for bit the plain version's")
@@ -1499,21 +1496,10 @@ def win_gather_refusal_phase() -> None:
         "loop_non_contiguous": lambda: loop(g.t(), gi),
         "loop_requires_grad": lambda: loop(g.clone().requires_grad_(), gi),
     }
-    wrappers = (win, rows, lanes, loop)
-    launches = [f.launches for f in wrappers]
-    refused = {}
-    for case, call in cases.items():
-        try:
-            call()
-        except (ValueError, NotImplementedError) as e:
-            refused[case] = str(e)
-    check(sorted(refused) == sorted(cases),
-          f"inputs not refused: {sorted(set(cases) - set(refused))}")
-    check([f.launches for f in wrappers] == launches,
-          "a refused input was launched")
+    refused = refuse_all(cases, (win, rows, lanes, loop),
+                         (ValueError, NotImplementedError))
     for case in ("win_requires_grad", "loop_requires_grad"):
         check("no_grad" in refused[case], f"{case}: not refused as tracked")
-    emit("refuse", **refused)
 
 
 def gradient_phase(B=64, N=512, F=128, E=8192, seed=95) -> None:

@@ -70,7 +70,6 @@ from gcm_tpu_torch.ops.scatter import (edge_mask, edge_scatter_add,
 
 ITERS = 20  # chained calls per timed round
 ROUNDS = 5  # timed rounds; the median is kept
-NOT_PORTED = ()  # rows of the JAX script with no counterpart here
 
 
 def make_edges(B, N, E, seed=1):
@@ -287,7 +286,7 @@ def run_sweep(B=64, N=512, E=8192, F=128, device=None, skip=(), seed=1):
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     return {"device": name, "workload": f"B={B} N={N} E={E} F={F}",
-            "cap": cap, "results": results, "not_ported": list(NOT_PORTED)}
+            "cap": cap, "results": results, "not_ported": []}
 
 
 def main(argv=None):

@@ -38,7 +38,7 @@ from gcm_tpu.ops.pallas import spmm2 as jax_pairs
 from gcm_tpu.ops.pallas import spmm_prefetch as jax_prefetch
 from gcm_tpu.ops.pallas import spmm_seg as jax_seg
 from gcm_tpu_torch.benchmarks import spmm_variants as sweep_mod
-from gcm_tpu_torch.benchmarks.spmm_variants import NOT_PORTED, run_sweep
+from gcm_tpu_torch.benchmarks.spmm_variants import run_sweep
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.cuda import gather as gather_mod
 from gcm_tpu_torch.ops.cuda import spmm as spmm_mod
@@ -675,5 +675,5 @@ def test_run_sweep_on_cpu(capsys, monkeypatch):
     assert rows["onehot_bf16"]["max_abs_err"] > 0  # the rounding shows
     assert rows["win_f32"]["launches"] == 0  # the plain version on the CPU
     assert out["cap"] == 128 and out["device"] == "cpu"
-    assert out["not_ported"] == list(NOT_PORTED) == []
+    assert out["not_ported"] == []
     assert capsys.readouterr().out.count("\n") == len(rows)
