@@ -6,7 +6,8 @@ Phases, one JSON line each:
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: builds every kernel from gcm_tpu_torch/csrc with nvcc (sm_90a);
 3. kernels: each kernel against its plain PyTorch version on the card
-   (max abs error, tolerance 1e-5: only the summation order differs), with
+   (max abs error, tolerance 1e-5: the summation order differs, and the
+   dense kernels' products are 3xTF32 on the tensor cores), with
    the device time per call and the time per call with the host's launch
    gaps (both from CUDA events) of the kernel, the plain version and a
    torch bmm/addmm chain of the same function (TF32 off); then inputs the
@@ -57,8 +58,8 @@ benchmarks/drive_r5c.py's shape and empty edge lists, beside the same
 torch.sparse.mm; the gathers take_rows, take_lanes and take_rows_loop bit
 for bit against theirs (NaN where NaN) at the probe's shapes, at the
 sweep's message gather ([32768, 128] by 524,288 indices; lanes [32768,
-512] by [32768, 128]) and with indices past either end, beside
-index_select / torch.gather; it checks every kernel's refusals, and runs
+512] by [32768, 128]), with indices past either end and, for
+take_rows_loop, at 65,536 rows, beside index_select / torch.gather; it checks every kernel's refusals, and runs
 spmm_pairs and spmm_seg forward and backward against autograd through
 their plain versions (dx and dw within 1e-4, exact launch counts).
 Phases 4-8 each run with every launch count set to 0 just before and
@@ -82,6 +83,7 @@ TOL_KERNEL = 1e-5
 TOL_MODEL = 1e-4
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+PEAK_TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
 
 
 def emit(phase: str, **fields) -> None:
@@ -149,13 +151,21 @@ def time_ms(fn, reps: int = 20, rounds: int = 5,
 
 # -- phase 3: kernels against their plain versions ---------------------------
 
-def make_case(B, N, widths, seed):
+def make_case(B, N, widths, seed, inputs="0/1"):
     """x, adj and flat params on the card. adj is random 0/1 with eight
-    in-edges per row on average and every eighth row empty."""
+    in-edges per row on average and every eighth row empty; with inputs
+    "weighted" that mask times uniform (0, 1) edge weights, as DenseGNN
+    builds it with edge weights (the TF32 split of a 0/1 adj has no low
+    half); with "x*8" x is scaled by 8, so that the split of h carries
+    larger magnitudes."""
     g = torch.Generator().manual_seed(seed)
     x = torch.rand((B, N, widths[0]), generator=g) * 2 - 1
     adj = (torch.rand((B, N, N), generator=g) < 8 / N).float()
     adj[:, ::8, :] = 0.0
+    if inputs == "weighted":
+        adj *= torch.rand((B, N, N), generator=g)
+    elif inputs == "x*8":
+        x *= 8
     flat = []
     for fin, fout in zip(widths[:-1], widths[1:]):
         bound = fin ** -0.5
@@ -177,11 +187,12 @@ def library_gnn(x, adj, wcats, biases, acts):
     return h
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak=PEAK_F32_FLOP_PER_S):
     """Least time on an H100 SXM for a function that must move nbytes (each
-    input read once, each output written once) and do flops f32
-    operations: (ms, what bounds it)."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
+    input read once, each output written once) and do flops operations at
+    the rate peak (f32 outside the tensor cores by default): (ms, what
+    bounds it)."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -194,12 +205,14 @@ def lane_bytes(sinks):
 
 
 def dense_bound_ms(B, N, widths):
-    """The dense stack's products at the f32 rate, or its bytes."""
+    """The dense stack's products on the tensor cores, three TF32 products
+    for each f32-accurate one (3xTF32, which holds TOL_KERNEL), or its
+    bytes."""
     flops = sum(2 * B * (N * N * fi + 2 * N * fi * fo)
                 for fi, fo in zip(widths[:-1], widths[1:]))
     params = sum(2 * fi * fo + fo for fi, fo in zip(widths[:-1], widths[1:]))
     nbytes = 4 * (B * N * widths[0] + B * N * N + params + B * N * widths[-1])
-    return bound_ms(nbytes, flops)
+    return bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
 
 
 def max_abs_err(got, want, nan_fills=False) -> float:
@@ -254,13 +267,13 @@ def kernel_row(name, shape, main_path, kernel, plain, library, bound,
     return row
 
 
-def kernel_case(name, B, N, widths, acts, seed, main_path):
+def kernel_case(name, B, N, widths, acts, inputs, seed, main_path):
     from gcm_tpu_torch.ops.cuda.dense_gconv import (
         fused_dense_graph_conv, fused_dense_graph_conv_plain)
     from gcm_tpu_torch.ops.cuda.fused_gnn import (fused_dense_gnn,
                                                   fused_dense_gnn_plain)
 
-    x, adj, *flat = make_case(B, N, widths, seed)
+    x, adj, *flat = make_case(B, N, widths, seed, inputs)
     if name == "fused_dense_gnn":
         def kernel():
             return fused_dense_gnn(x, adj, flat, acts)
@@ -278,26 +291,38 @@ def kernel_case(name, B, N, widths, acts, seed, main_path):
              for i in range(len(acts))]
     biases = [flat[3 * i + 1] for i in range(len(acts))]
     return kernel_row(
-        name, dict(B=B, N=N, widths=list(widths), acts=list(acts)),
+        name, dict(B=B, N=N, widths=list(widths), acts=list(acts),
+                   inputs=inputs),
         main_path, kernel, plain,
         library=lambda: library_gnn(x, adj, wcats, biases, acts),
         bound=dense_bound_ms(B, N, widths))
 
 
 KERNEL_CASES = [
-    # (name, B, N, widths, acts, main_path)
-    ("fused_dense_gnn", 256, 128, (32, 32, 32), ("tanh", "tanh"), True),
-    ("fused_dense_gnn", 32, 512, (32, 32, 32), ("tanh", "tanh"), False),
-    ("fused_dense_gnn", 8, 512, (128, 128, 128), ("relu", "tanh"), False),
-    ("fused_dense_gnn", 16, 128, (8, 32, 64, 16), (None, "relu", "tanh"),
+    # (name, B, N, widths, acts, inputs (make_case), main_path)
+    ("fused_dense_gnn", 256, 128, (32, 32, 32), ("tanh", "tanh"), "0/1",
+     True),
+    ("fused_dense_gnn", 32, 512, (32, 32, 32), ("tanh", "tanh"), "0/1",
      False),
-    ("fused_dense_graph_conv", 32, 128, (32, 32), (None,), True),
-    ("fused_dense_graph_conv", 256, 128, (32, 32), (None,), False),
-    ("fused_dense_graph_conv", 256, 128, (32, 32), ("tanh",), False),
-    ("fused_dense_graph_conv", 256, 128, (32, 32), ("relu",), False),
-    # widths that are not multiples of 4 (shared-memory alignment)
-    ("fused_dense_gnn", 16, 128, (8, 30, 17), ("tanh", None), False),
-    ("fused_dense_graph_conv", 16, 128, (13, 30), ("relu",), False),
+    ("fused_dense_gnn", 8, 512, (128, 128, 128), ("relu", "tanh"), "0/1",
+     False),
+    ("fused_dense_gnn", 16, 128, (8, 32, 64, 16), (None, "relu", "tanh"),
+     "0/1", False),
+    ("fused_dense_graph_conv", 32, 128, (32, 32), (None,), "0/1", True),
+    ("fused_dense_graph_conv", 256, 128, (32, 32), (None,), "0/1", False),
+    ("fused_dense_graph_conv", 256, 128, (32, 32), ("tanh",), "0/1", False),
+    ("fused_dense_graph_conv", 256, 128, (32, 32), ("relu",), "0/1", False),
+    # widths that are not multiples of 8 (the MMA tiles' padding)
+    ("fused_dense_gnn", 16, 128, (8, 30, 17), ("tanh", None), "0/1", False),
+    ("fused_dense_graph_conv", 16, 128, (13, 30), ("relu",), "0/1", False),
+    # the low half of the TF32 split: a weighted adjacency, a larger x (its
+    # outputs through tanh: unbounded outputs of ~40 differ by more than
+    # 1e-5 from f32 rounding alone)
+    ("fused_dense_gnn", 256, 128, (32, 32, 32), ("tanh", "tanh"), "weighted",
+     False),
+    ("fused_dense_graph_conv", 32, 128, (32, 32), (None,), "weighted", False),
+    ("fused_dense_gnn", 256, 128, (32, 32, 32), ("tanh", "tanh"), "x*8",
+     False),
 ]
 
 
@@ -1367,7 +1392,9 @@ def gather_inputs(kernel, case, seed):
     rows gather the sweep's messages (x the sweep's [B*N, F] = [32768, 128]
     node rows, idx b*N + src of its B*E = 524,288 edges), lanes gather
     [32768, 128] of [32768, 512]; "out of range": indices past either end
-    (-D-36, -D, -1, D+6 among them, D the gathered dimension)."""
+    (-D-36, -D, -1, D+6 among them, D the gathered dimension); "middle":
+    rows gather 65,536 random rows of [32768, 128], where take_rows_loop's
+    runs are neither 1 row nor 32."""
     rng = np.random.default_rng(seed)
     lanes = kernel == "take_lanes"
     if case == "probe":
@@ -1378,6 +1405,9 @@ def gather_inputs(kernel, case, seed):
         else:
             x = np.arange(64 * 128, dtype=np.float32).reshape(64, 128)
             idx = np.array([5, 3, 60, 0, 1, 2, 33, 7] * 16, np.int32)
+    elif case == "middle":
+        x = rng.standard_normal((32768, 128)).astype(np.float32)
+        idx = rng.integers(0, 32768, 65536).astype(np.int32)
     elif case == "wide":
         if lanes:
             x = rng.standard_normal((32768, 512)).astype(np.float32)
@@ -1448,7 +1478,7 @@ GATHER_CASES = [
     (kernel, case, case == "probe")
     for kernel in ("take_rows", "take_lanes", "take_rows_loop")
     for case in ("probe", "wide", "out of range")
-]
+] + [("take_rows_loop", "middle", False)]
 
 
 def win_gather_refusal_phase() -> None:
@@ -1658,7 +1688,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, sources=waited,
          ptxas=ptxas)
 
-    rows = [kernel_case(*case[:5], seed=i, main_path=case[5])
+    rows = [kernel_case(*case[:6], seed=i, main_path=case[6])
             for i, case in enumerate(KERNEL_CASES)]
     rows += [spmm_case(*case[:5], seed=i, main_path=case[5])
              for i, case in enumerate(SPMM_CASES)]

@@ -23,11 +23,17 @@
 // stores 512 contiguous bytes, and reads its index through the read-only
 // path. take_lanes gives one thread one output element; neighbouring threads
 // store neighbouring elements and read their indices coalesced. The loop
-// keeps the shape of the TPU's: one warp walks a run of kRun output rows in
+// keeps the shape of the TPU's: one warp walks a run of output rows in
 // order, loads the run's indices once (one a lane) and broadcasts each with
-// __shfl_sync, and copies the row with 16-byte loads and stores where the
-// layout allows. All three only copy, so the plain versions agree with them
-// bit for bit.
+// __shfl_sync, and copies the rows with 16-byte loads and stores where the
+// layout allows, the loads of kBatch rows issued before their stores so that
+// the copies overlap. The run length comes from the caller, 1..32, chosen
+// from M (ops/cuda/gather.py::loop_run_length): runs of 32 for a gather as
+// wide as the sweep's messages, shorter ones for a short gather, whose rows
+// would otherwise queue on a few warps of one SM (runs of 1 at the probe's
+// 128 rows, 128 warps over 16 blocks, where each lane reads the row's index
+// itself and no shuffle is needed). All three only copy, so the plain
+// versions agree with them bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -37,7 +43,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRun = 32;  // output rows one warp of the loop walks in order
+constexpr int kMaxRun = 32;  // output rows one warp of the loop walks in order
+constexpr int kBatch = 4;    // rows whose loads the loop issues together
 constexpr int kMaxBlocks = 132 * 16;  // grid-stride beyond this
 
 __device__ __forceinline__ float nan_f32() {
@@ -48,6 +55,12 @@ __device__ __forceinline__ float nan_f32() {
 __device__ __forceinline__ int64_t wrap_or_fill(int i, int64_t D) {
   const int64_t j = i < 0 ? i + D : i;
   return (j >= 0 && j < D) ? j : -1;
+}
+
+// the dynamic-slice rule: i < 0 becomes i + R, then clamped into 0..R-1
+__device__ __forceinline__ int64_t loop_row(int i, int64_t R) {
+  const int64_t j = i < 0 ? i + R : i;
+  return j < 0 ? 0 : (j >= R ? R - 1 : j);
 }
 
 // x [R,C] viewed as [R,C/V] of V-float vectors
@@ -97,30 +110,50 @@ take_lanes_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   }
 }
 
-template <int V>
+// ONE: runs of one row (run_len 1), where every lane reads the row's index
+// itself and the kernel is no more than that copy.
+template <int V, bool ONE>
 __global__ void __launch_bounds__(kThreads)
 take_rows_loop_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                       float* __restrict__ out, int64_t R, int64_t C,
-                      int64_t M) {
+                      int64_t M, int run_len) {
   using T = typename Vec<V>::T;
   const int lane = threadIdx.x & 31;
   const int64_t cv = C / V;
   const T* xv = reinterpret_cast<const T*>(x);
   T* ov = reinterpret_cast<T*>(out);
   const int64_t warps = int64_t(gridDim.x) * kWarps;
+  if (ONE) {
+    for (int64_t m = blockIdx.x * int64_t(kWarps) + (threadIdx.x >> 5); m < M;
+         m += warps) {
+      const T* src = xv + loop_row(__ldg(idx + m), R) * cv;
+      for (int64_t c = lane; c < cv; c += 32) ov[m * cv + c] = __ldg(src + c);
+    }
+    return;
+  }
   for (int64_t run = blockIdx.x * int64_t(kWarps) + (threadIdx.x >> 5);
-       run * kRun < M; run += warps) {
-    const int64_t m0 = run * kRun;
-    const int rows = M - m0 < kRun ? int(M - m0) : kRun;
+       run * run_len < M; run += warps) {
+    const int64_t m0 = run * run_len;
+    const int rows = M - m0 < run_len ? int(M - m0) : run_len;
     // the run's indices, one a lane, each read once
     int mine = lane < rows ? __ldg(idx + m0 + lane) : 0;
-    for (int j = 0; j < rows; ++j) {
-      int64_t i = __shfl_sync(0xffffffffu, mine, j);
-      if (i < 0) i += R;
-      i = i < 0 ? 0 : (i >= R ? R - 1 : i);
-      const T* src = xv + i * cv;
-      T* dst = ov + (m0 + j) * cv;
-      for (int64_t c = lane; c < cv; c += 32) dst[c] = __ldg(src + c);
+    for (int j0 = 0; j0 < rows; j0 += kBatch) {
+      const T* src[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = __shfl_sync(0xffffffffu, mine, (j0 + u) & 31);
+        src[u] = xv + loop_row(i, R) * cv;
+      }
+      T* dst = ov + (m0 + j0) * cv;
+      for (int64_t c = lane; c < cv; c += 32) {
+        T v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (j0 + u < rows) v[u] = __ldg(src[u] + c);
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (j0 + u < rows) dst[u * cv + c] = v[u];
+      }
     }
   }
 }
@@ -174,22 +207,34 @@ int gcm_take_lanes(const void* x, const void* idx, void* out, int64_t R,
   return finish();
 }
 
-// x [R,C] f32, idx [M] int32, out [M,C] f32.
+// x [R,C] f32, idx [M] int32, out [M,C] f32; one warp copies each run of
+// run_len (1..32) output rows.
 int gcm_take_rows_loop(const void* x, const void* idx, void* out, int64_t R,
-                       int64_t C, int64_t M, int device, void* stream) {
-  if (R < 1 || C < 1 || M < 1) return int(cudaErrorInvalidValue);
+                       int64_t C, int64_t M, int run_len, int device,
+                       void* stream) {
+  if (R < 1 || C < 1 || M < 1 || run_len < 1 || run_len > kMaxRun)
+    return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   auto s = static_cast<cudaStream_t>(stream);
-  const int64_t runs = (M + kRun - 1) / kRun;
+  const int64_t runs = (M + run_len - 1) / run_len;
   const int blocks = blocks_for(runs * 32);  // one warp a run
   const float* xf = static_cast<const float*>(x);
   const int* ii = static_cast<const int*>(idx);
   float* of = static_cast<float*>(out);
-  if (C % 4 == 0 && aligned16(x, out))
-    take_rows_loop_kernel<4><<<blocks, kThreads, 0, s>>>(xf, ii, of, R, C, M);
+  const bool vec = C % 4 == 0 && aligned16(x, out);
+  if (run_len == 1 && vec)
+    take_rows_loop_kernel<4, true><<<blocks, kThreads, 0, s>>>(
+        xf, ii, of, R, C, M, run_len);
+  else if (run_len == 1)
+    take_rows_loop_kernel<1, true><<<blocks, kThreads, 0, s>>>(
+        xf, ii, of, R, C, M, run_len);
+  else if (vec)
+    take_rows_loop_kernel<4, false><<<blocks, kThreads, 0, s>>>(
+        xf, ii, of, R, C, M, run_len);
   else
-    take_rows_loop_kernel<1><<<blocks, kThreads, 0, s>>>(xf, ii, of, R, C, M);
+    take_rows_loop_kernel<1, false><<<blocks, kThreads, 0, s>>>(
+        xf, ii, of, R, C, M, run_len);
   return finish();
 }
 

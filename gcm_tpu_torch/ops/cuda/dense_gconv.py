@@ -3,9 +3,10 @@ gcm_tpu/ops/pallas/dense_gconv.py):
 
     out = (adj @ x) @ W_rel + b_rel + x @ W_root  [+ activation]
 
-It shares its device code with the fused stack (csrc/dense_gnn.cu, the
-one-layer case, where each block takes one tile of rows) but has its own C
-entry point and its own launch count.
+It shares its device code with the fused stack (csrc/dense_gnn.cu: 3xTF32
+products on the tensor cores; the one-layer case, where the rows are split
+over blocks of 32..128) but has its own C entry point and its own launch
+count.
 """
 
 from __future__ import annotations

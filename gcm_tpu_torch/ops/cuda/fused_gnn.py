@@ -3,8 +3,9 @@ their activations in one launch (counterpart of
 gcm_tpu/ops/pallas/fused_gnn.py).
 
 `fused_dense_gnn` launches the hand-written CUDA kernel
-(csrc/dense_gnn.cu) for CUDA tensors and takes the plain PyTorch version,
-`fused_dense_gnn_plain`, only for CPU tensors. Forward only.
+(csrc/dense_gnn.cu: 3xTF32 products on the tensor cores, within 1e-5 of
+the float32 plain version) for CUDA tensors and takes the plain PyTorch
+version, `fused_dense_gnn_plain`, only for CPU tensors. Forward only.
 """
 
 from __future__ import annotations

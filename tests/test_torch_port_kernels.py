@@ -27,11 +27,16 @@ ATOL = 1e-5
 B, N, F = 3, 16, 8
 
 
-def make_inputs(n_layers, seed=0):
+def make_inputs(n_layers, seed=0, weighted=False):
+    """x, adj and flat params; adj 0/1, or with weighted the mask times
+    uniform (0, 1) edge weights, as DenseGNN builds it with edge weights
+    (the card's 3xTF32 split of a 0/1 adjacency has no low half)."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, N, F)).astype(np.float32)
     adj = (rng.random((B, N, N)) < 0.3).astype(np.float32)
     adj[:, 0, :] = 0.0  # a row with no edges
+    if weighted:
+        adj *= rng.random((B, N, N)).astype(np.float32)
     flat = []
     for _ in range(n_layers):
         flat += [rng.uniform(-0.35, 0.35, (F, F)).astype(np.float32),
@@ -43,14 +48,15 @@ def make_inputs(n_layers, seed=0):
 @pytest.mark.parametrize("act", [None, "tanh", "relu"])
 @pytest.mark.parametrize("n_layers", [1, 2])
 def test_fused_dense_gnn_matches_pallas(n_layers, act):
-    x, adj, flat = make_inputs(n_layers)
     acts = (act,) * n_layers
-    want = _pallas_forward(jnp.asarray(x), jnp.asarray(adj),
-                           tuple(jnp.asarray(p) for p in flat), acts)
-    got = fused_dense_gnn(torch.from_numpy(x), torch.from_numpy(adj),
-                          [torch.from_numpy(p) for p in flat], acts)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
-                               rtol=0)
+    for weighted in (False, True):
+        x, adj, flat = make_inputs(n_layers, weighted=weighted)
+        want = _pallas_forward(jnp.asarray(x), jnp.asarray(adj),
+                               tuple(jnp.asarray(p) for p in flat), acts)
+        got = fused_dense_gnn(torch.from_numpy(x), torch.from_numpy(adj),
+                              [torch.from_numpy(p) for p in flat], acts)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   rtol=0, err_msg=f"weighted={weighted}")
 
 
 @pytest.mark.parametrize("act", [None, "tanh", "relu"])
@@ -127,3 +133,22 @@ def test_forward_only_refuses_tracked_inputs():
         fused_dense_graph_conv(torch.from_numpy(x), torch.from_numpy(adj), w,
                                torch.from_numpy(flat[1]),
                                torch.from_numpy(flat[2]))
+
+
+def test_dense_bound_counts_3xtf32_on_tensor_cores():
+    """chip_smoke.py's bound for the dense kernels counts their products
+    three times (3xTF32) at the tensor cores' dense TF32 rate, and so is
+    set by the bytes at the served tick's shape: 25.18 MB over 3.35 TB/s,
+    not 805 MFLOP over the CUDA cores' 67 TFLOP/s."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_bounds", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    ms, by = chip_smoke.dense_bound_ms(256, 128, (32, 32, 32))
+    assert by == "bytes" and ms == pytest.approx(25.18e6 / 3.35e12 * 1e3,
+                                                 rel=1e-3)
+    ms, by = chip_smoke.dense_bound_ms(32, 128, (32, 32))
+    assert by == "bytes" and ms == pytest.approx(0.00094, rel=2e-3)
