@@ -10,9 +10,10 @@ Phases, one JSON line each:
    dense kernels' products are 3xTF32 on the tensor cores), with
    the device time per call and the time per call with the host's launch
    gaps (both from CUDA events) of the kernel, the plain version and a
-   torch bmm/addmm chain of the same function (TF32 off); then inputs the
-   kernels do not
-   take (misaligned, wrong graph size, float64) must raise, unlaunched;
+   torch bmm/addmm chain of the same function (TF32 off), the dense
+   kernels at cases that reach every instantiation of csrc/dense_gnn.cu;
+   then inputs the kernels do not take (misaligned, wrong graph size,
+   float64) must raise, unlaunched;
 4. serve: the flagship DenseGCM in a SessionServer(capacity=256) for 200
    ticks with session churn and LRU evictions, against a CPU copy with the
    same weights (atol 1e-4), with a snapshot/restore at tick 100 that must
@@ -322,6 +323,21 @@ KERNEL_CASES = [
      False),
     ("fused_dense_graph_conv", 32, 128, (32, 32), (None,), "weighted", False),
     ("fused_dense_gnn", 256, 128, (32, 32, 32), ("tanh", "tanh"), "x*8",
+     False),
+    # the plans and instantiations of csrc/dense_gnn.cu the cases above
+    # leave out: h as quads over two passes, the adjacency streamed through
+    # two chunk buffers; split single-layer blocks at 2 and 4 n-tiles a
+    # warp, the latter also streamed with x read from device memory; quads
+    # at 16 n-tiles with x loaded a float at a time; h in global memory at
+    # 8 n-tiles
+    ("fused_dense_gnn", 32, 256, (32, 32, 32), ("tanh", "tanh"), "weighted",
+     False),
+    ("fused_dense_graph_conv", 32, 128, (64, 64), ("tanh",), "0/1", False),
+    ("fused_dense_graph_conv", 32, 128, (128, 128), ("relu",), "0/1", False),
+    ("fused_dense_graph_conv", 4, 1024, (128, 128), ("tanh",), "weighted",
+     False),
+    ("fused_dense_gnn", 16, 64, (7, 96, 9), ("tanh", None), "0/1", False),
+    ("fused_dense_gnn", 8, 512, (64, 64, 64), ("relu", "tanh"), "0/1",
      False),
 ]
 

@@ -302,10 +302,8 @@ __device__ __forceinline__ void put_split(float4* m, int k, int n,
   e[2] = q.y;
 }
 
-// tanh as 1 - 2 / (1 + e^2v) with the fast exponential: within 2e-7 of
-// tanhf (absolute), at a fraction of its instructions; +-1 past |v| ~ 44.
 __device__ __forceinline__ float apply_act(float v, int act) {
-  if (act == kTanh) return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * v));
+  if (act == kTanh) return tanhf(v);
   if (act == kRelu) return fmaxf(v, 0.0f);
   return v;
 }

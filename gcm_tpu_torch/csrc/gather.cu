@@ -24,16 +24,15 @@
 // path. take_lanes gives one thread one output element; neighbouring threads
 // store neighbouring elements and read their indices coalesced. The loop
 // keeps the shape of the TPU's: one warp walks a run of output rows in
-// order, loads the run's indices once (one a lane) and broadcasts each with
-// __shfl_sync, and copies the rows with 16-byte loads and stores where the
-// layout allows, the loads of kBatch rows issued before their stores so that
-// the copies overlap. The run length comes from the caller, 1..32, chosen
-// from M (ops/cuda/gather.py::loop_run_length): runs of 32 for a gather as
-// wide as the sweep's messages, shorter ones for a short gather, whose rows
-// would otherwise queue on a few warps of one SM (runs of 1 at the probe's
-// 128 rows, 128 warps over 16 blocks, where each lane reads the row's index
-// itself and no shuffle is needed). All three only copy, so the plain
-// versions agree with them bit for bit.
+// order, reads each row's index as a scalar (one load that every lane of the
+// warp makes, from L1 after the run's first), and copies the rows with
+// 16-byte loads and stores where the layout allows, the loads of kBatch rows
+// issued before their stores so that the copies overlap. The run length comes from M (loop_run_length): runs of
+// 32 for a gather as wide as the sweep's messages, shorter ones, down to 1,
+// for a short gather, whose rows would otherwise queue on a few warps of one
+// SM (runs of 1 at the probe's 128 rows: 128 warps over 16 blocks, not 4
+// warps in one, with an instantiation of their own). All three only copy,
+// so the plain versions agree with them bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -45,7 +44,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRun = 32;  // output rows one warp of the loop walks in order
 constexpr int kBatch = 4;    // rows whose loads the loop issues together
-constexpr int kMaxBlocks = 132 * 16;  // grid-stride beyond this
+constexpr int kSMs = 132;              // H100 SXM
+constexpr int kMaxBlocks = kSMs * 16;  // grid-stride beyond this
 
 __device__ __forceinline__ float nan_f32() {
   return __int_as_float(0x7fc00000);  // the NaN torch writes for nan
@@ -110,8 +110,10 @@ take_lanes_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   }
 }
 
-// ONE: runs of one row (run_len 1), where every lane reads the row's index
-// itself and the kernel is no more than that copy.
+// ONE: runs of one row (run_len 1), a warp a row and no loop over the run:
+// at the probe's 128 rows 0.00035 ms faster than the general loop given runs
+// of one (gcm_tpu_torch/benchmarks/gather_loop_ab.py), which falls behind
+// index_select there.
 template <int V, bool ONE>
 __global__ void __launch_bounds__(kThreads)
 take_rows_loop_kernel(const float* __restrict__ x, const int* __restrict__ idx,
@@ -135,15 +137,13 @@ take_rows_loop_kernel(const float* __restrict__ x, const int* __restrict__ idx,
        run * run_len < M; run += warps) {
     const int64_t m0 = run * run_len;
     const int rows = M - m0 < run_len ? int(M - m0) : run_len;
-    // the run's indices, one a lane, each read once
-    int mine = lane < rows ? __ldg(idx + m0 + lane) : 0;
     for (int j0 = 0; j0 < rows; j0 += kBatch) {
+      // each row's index, read by every lane of the warp (one broadcast load)
       const T* src[kBatch];
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = __shfl_sync(0xffffffffu, mine, (j0 + u) & 31);
-        src[u] = xv + loop_row(i, R) * cv;
-      }
+      for (int u = 0; u < kBatch; ++u)
+        src[u] = xv + loop_row(j0 + u < rows ? __ldg(idx + m0 + j0 + u) : 0,
+                               R) * cv;
       T* dst = ov + (m0 + j0) * cv;
       for (int64_t c = lane; c < cv; c += 32) {
         T v[kBatch];
@@ -156,6 +156,15 @@ take_rows_loop_kernel(const float* __restrict__ x, const int* __restrict__ idx,
       }
     }
   }
+}
+
+// Output rows one warp of the loop copies in order: runs of kMaxRun while M
+// fills every SM with 4 blocks of them, shorter ones (down to 1) for a short
+// gather, so that its rows spread over the card.
+int loop_run_length(int64_t M) {
+  constexpr int64_t warps = int64_t(kSMs) * 4 * kWarps;
+  const int64_t run = (M + warps - 1) / warps;
+  return int(run < kMaxRun ? run : kMaxRun);
 }
 
 int blocks_for(int64_t work) {
@@ -208,15 +217,14 @@ int gcm_take_lanes(const void* x, const void* idx, void* out, int64_t R,
 }
 
 // x [R,C] f32, idx [M] int32, out [M,C] f32; one warp copies each run of
-// run_len (1..32) output rows.
+// loop_run_length(M) output rows.
 int gcm_take_rows_loop(const void* x, const void* idx, void* out, int64_t R,
-                       int64_t C, int64_t M, int run_len, int device,
-                       void* stream) {
-  if (R < 1 || C < 1 || M < 1 || run_len < 1 || run_len > kMaxRun)
-    return int(cudaErrorInvalidValue);
+                       int64_t C, int64_t M, int device, void* stream) {
+  if (R < 1 || C < 1 || M < 1) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   auto s = static_cast<cudaStream_t>(stream);
+  const int run_len = loop_run_length(M);
   const int64_t runs = (M + run_len - 1) / run_len;
   const int blocks = blocks_for(runs * 32);  // one warp a run
   const float* xf = static_cast<const float*>(x);

@@ -12,7 +12,6 @@ outside -D..D-1 gives NaN. take_rows_loop follows the dynamic-slice rule of
 the probe's loop of row slices: i < 0 becomes i + R, then i' is clamped
 into 0..R-1.
 
-take_rows_loop's kernel gives each warp a run of `loop_run_length(M)` rows.
 Each launches its kernel of csrc/gather.cu for CUDA tensors, or raises, and
 takes its plain version (`*_plain`) only for CPU tensors. They only copy,
 so kernel and plain version agree bit for bit. No gradient (the probe had
@@ -54,26 +53,14 @@ def take_rows_loop_plain(x, idx):
     return x.index_select(0, torch.where(i < 0, i + R, i).clamp(0, R - 1))
 
 
-LOOP_WARPS = 132 * 8 * 4  # warps that fill an H100: 8 a block, 4 blocks an SM
-
-
-def loop_run_length(M: int) -> int:
-    """Output rows one warp of take_rows_loop copies in order: runs of 32
-    while M fills LOOP_WARPS warps with them, shorter ones (down to 1) for a
-    short gather, so that its rows spread over the card."""
-    return min(max(-(-M // LOOP_WARPS), 1), 32)
-
-
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gather")
     vp, ip, lp = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    for entry in ("gcm_take_rows", "gcm_take_lanes"):
+    for entry in ("gcm_take_rows", "gcm_take_lanes", "gcm_take_rows_loop"):
         fn = getattr(lib, entry)
         fn.argtypes = [vp, vp, vp, lp, lp, lp, ip, vp]
         fn.restype = ip
-    lib.gcm_take_rows_loop.argtypes = [vp, vp, vp, lp, lp, lp, ip, ip, vp]
-    lib.gcm_take_rows_loop.restype = ip
     return lib
 
 
@@ -91,15 +78,15 @@ def _check(name, x, idx, lanes: bool):
     return tuple(idx.shape) if lanes else (idx.shape[0], x.shape[1])
 
 
-def _launch(wrapper, entry: str, x, idx, shape, *extra):
+def _launch(wrapper, entry: str, x, idx, shape):
     dev = x.device
     check_cuda("x", x, tuple(x.shape), dev)
     check_cuda("idx", idx, tuple(idx.shape), dev, torch.int32)
     out = torch.empty(shape, device=dev, dtype=torch.float32)
     if out.numel():  # an empty gather launches nothing
         rc = getattr(_lib(), entry)(ptr(x), ptr(idx), ptr(out), x.shape[0],
-                                    x.shape[1], idx.shape[-1], *extra,
-                                    dev.index, stream_of(dev))
+                                    x.shape[1], idx.shape[-1], dev.index,
+                                    stream_of(dev))
         check_rc(wrapper.__name__, rc)
         wrapper.launches += 1
     return out
@@ -131,8 +118,7 @@ def take_rows_loop(x, idx):
     shape = _check("take_rows_loop", x, idx, lanes=False)
     if x.device.type == "cpu":
         return take_rows_loop_plain(x, idx)
-    return _launch(take_rows_loop, "gcm_take_rows_loop", x, idx, shape,
-                   loop_run_length(idx.shape[0]))
+    return _launch(take_rows_loop, "gcm_take_rows_loop", x, idx, shape)
 
 
 take_rows.launches = 0  # kernel launches, for callers to read and reset

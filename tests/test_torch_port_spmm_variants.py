@@ -354,16 +354,6 @@ def test_gathers_match_pallas_probes():
     np.testing.assert_array_equal(got[[1, 3]], x[[63, 0]])
 
 
-def test_take_rows_loop_run_length():
-    """take_rows_loop's kernel gives each warp a run of rows sized to M:
-    runs of 1 at the probe's 128 rows (128 warps, not 4), 16 at a middle
-    65,536, and 32 once M fills 132 SMs x 32 warps with them, as at the
-    sweep's 524,288-row message gather."""
-    runs = [gather_mod.loop_run_length(m)
-            for m in (1, 128, 4224, 4225, 65536, 135168, 135169, 524288)]
-    assert runs == [1, 1, 1, 2, 16, 32, 32, 32]
-
-
 def test_probe_matches_jax(monkeypatch):
     """The port's probe_dynamic_gather on the CPU reports what the JAX
     script's reports in interpret mode: every gather "ok"."""
