@@ -55,7 +55,11 @@ spmm_seg, spmm_prefetch, spmm_onehot_dtype and spmm_win (f32, bf16)
 bitwise against theirs (which add in the kernels' order) at the sweep's
 point, at odd shapes with sentinels and out-of-range indices (spmm_win on
 raw lanes whose sinks leave their windows), a segment spanning two chunks,
-benchmarks/drive_r5c.py's shape and empty edge lists, beside the same
+benchmarks/drive_r5c.py's shape and empty edge lists, and, for the
+sink-sorted kernels (csrc/sink_sort.cuh: spmm_edge_list, spmm_onehot_dtype,
+spmm_win, spmm_prefetch), a hot row over two sort passes, sinks descending
+in lane order, eight passes, 4,100 rows in row tiles and one sink block of
+905 or 4,100 rows, beside the same
 torch.sparse.mm; the gathers take_rows, take_lanes and take_rows_loop bit
 for bit against theirs (NaN where NaN) at the probe's shapes, at the
 sweep's message gather ([32768, 128] by 524,288 indices; lanes [32768,
@@ -239,7 +243,8 @@ def kernel_row(name, shape, main_path, kernel, plain, library, bound,
     call; emits and returns the row. Boolean outputs compare as 0/1. The
     kernel's output must be finite, unless nan_fills (the gathers' fills
     past the end): then it must be NaN exactly where the plain version's
-    is."""
+    is. A "hot row" case's plain version is checked but not timed (its one
+    row makes it thousands of launches a call; plain_ms is None)."""
     got = kernel()
     torch.cuda.synchronize()
     want = plain()
@@ -248,7 +253,8 @@ def kernel_row(name, shape, main_path, kernel, plain, library, bound,
     torch.cuda.synchronize()
     lib_err = max_abs_err(library(), want, nan_fills)
     ms, call_ms = time_ms(kernel)
-    plain_ms, plain_call_ms = time_ms(plain)
+    plain_ms, plain_call_ms = (time_ms(plain) if shape.get("case") != "hot row"
+                               else (None, None))
     library_ms, library_call_ms = time_ms(library)
     row = dict(kernel=name, **shape, main_path=main_path, max_abs_err=err,
                bitwise_repeatable=bitwise_equal(got, again),
@@ -418,6 +424,10 @@ def spmm_inputs(case, B, N, F, E, seed):
             edges[:, :, 3::6] = -1
             edges[:, 0, 4::12] = N
             edges[:, 1, 5::12] = N + 3
+        elif case == "hot row":  # every lane into one sink
+            edges[:, 0] = 7
+        elif case == "descending":  # sinks fall with the lane index
+            edges[:, 0] = N - 1 - np.arange(E) * N // E
         w = rng.uniform(0.5, 1.5, (B, E)).astype(np.float32)
     return x, edges, w
 
@@ -488,11 +498,19 @@ def slots_case(case, B, N, F, k, hops, seed, main_path):
 
 
 SPMM_CASES = [
-    # (case, B, N, F, E, main_path)
+    # (case, B, N, F, E, main_path); then the branches of the sink-sorted
+    # kernel (csrc/sink_sort.cuh): a hot row over two passes of 8,192 lanes
+    # (F = 130: float2 columns, a 2-column tile), sinks descending in lane
+    # order (F = 260: five feature tiles), eight passes, and N = 4,100 in tiles
+    # of 1,024 rows (the largest shared-memory plan)
     ("main path", 32, 128, 32, 512, True),
     ("wide", 64, 512, 128, 8192, False),
     ("odd", 3, 12, 13, 37, False),
     ("empty", 4, 128, 32, 64, False),
+    ("hot row", 2, 256, 130, 9000, False),
+    ("descending", 4, 512, 260, 4096, False),
+    ("many lanes", 2, 512, 128, 65536, False),
+    ("large N", 64, 4100, 13, 16384, False),
 ]
 SLOTS_CASES = [
     # (case, B, N, F, k, hops, main_path)
@@ -1185,9 +1203,9 @@ def variant_inputs(case, B, N, F, E, seed):
     """x, edges, weights on the card for a variant case: spmm_inputs', and
     for "chunk spanning" 200 edges into sink 7 (two 128-lane chunks of its
     bucket) before the random ones."""
-    x, edges, w = spmm_inputs("odd" if case == "odd" else
-                              "empty" if case == "empty" else "wide",
-                              B, N, F, E, seed)
+    x, edges, w = spmm_inputs(
+        case if case in ("odd", "empty", "hot row", "descending") else "wide",
+        B, N, F, E, seed)
     if case == "chunk spanning":
         edges[:, 0, :200] = 7
         edges[:, 1, :200] = np.arange(200) % N
@@ -1286,14 +1304,25 @@ VARIANT_CASES = [
     ("spmm_onehot_dtype", "odd", 3, 12, 13, 37, "f32", False),
     ("spmm_onehot_dtype", "odd", 3, 12, 13, 37, "bf16", False),
     ("spmm_onehot_dtype", "empty", 4, 128, 32, 64, "bf16", False),
+    # the sink-sorted kernels' branches (see SPMM_CASES): a hot row over two
+    # passes (the prefetch's second sink block empty), descending sinks at
+    # F = 260, eight passes; prefetch at one sink block of 905 rows (the
+    # earlier kernel's limit, one tile) and of 4,100 (five tiles, two passes)
+    ("spmm_onehot_dtype", "hot row", 2, 256, 130, 9000, "bf16", False),
+    ("spmm_onehot_dtype", "descending", 4, 512, 260, 4096, "bf16", False),
+    ("spmm_onehot_dtype", "many lanes", 2, 512, 128, 65536, "bf16", False),
+    ("spmm_prefetch", "hot row", 2, 256, 130, 9000, 2, False),
+    ("spmm_prefetch", "descending", 4, 512, 260, 4096, 4, False),
+    ("spmm_prefetch", "one block", 64, 905, 64, 4096, 1, False),
+    ("spmm_prefetch", "one block", 64, 4100, 13, 16384, 1, False),
 ]
 
 
 def variant_refusal_phase() -> None:
     """Inputs the variant kernels do not take raise on the card before any
     launch: float64, int64 indices, wrong shapes, non-contiguous or CPU
-    tensors, a graph or cap off the 128 grid, too many rows per sink block,
-    an unknown dtype, and a tracked input into the forward-only kernel."""
+    tensors, a graph or cap off the 128 grid, an unknown dtype, and a
+    tracked input into the forward-only kernel."""
     from gcm_tpu_torch.ops.cuda import spmm as spmm_mod
     from gcm_tpu_torch.ops.cuda import spmm2, spmm_prefetch, spmm_seg
 
@@ -1330,11 +1359,6 @@ def variant_refusal_phase() -> None:
         "prefetch_wrong_shape": lambda: bucketed(x, sl, src, pw[..., :-1],
                                                  256),
         "prefetch_non_contiguous": lambda: bucketed(xt, sl, src, pw, 256),
-        "prefetch_rows_per_block": lambda: bucketed(
-            torch.zeros((1, 1024, 8), device="cuda"),
-            torch.zeros((1, 1, 4), dtype=torch.int32, device="cuda"),
-            torch.zeros((1, 1, 4), dtype=torch.int32, device="cuda"),
-            torch.zeros((1, 1, 4), device="cuda"), 1024),
         "prefetch_requires_grad": lambda: spmm_prefetch.spmm_prefetch(
             x.clone().requires_grad_(), edges, w),
         "onehot_float64": lambda: onehot(x.double(), edges, w.double(),
@@ -1354,15 +1378,20 @@ def variant_refusal_phase() -> None:
 def win_case(case, B, N, F, cap, mode, seed, main_path):
     """spmm_win against its plain version beside torch.sparse.mm on the
     block-diagonal COO of the lanes that stay in their windows. "sweep":
-    the sweep's uniform edges bucketed at cap; "odd": raw lanes (sinks
-    outside their segment's window, sentinels, indices of N or more) as the
-    layout; "empty": all lanes -1."""
+    the sweep's uniform edges bucketed at cap; "descending": n_win * cap
+    edges with sinks falling with the lane index, bucketed (each segment
+    full, its sinks descending); "odd" and "hot row": raw lanes (sinks
+    outside their segment's window, sentinels, indices of N or more; every
+    sink 7, so segment 0 holds one hot row) as the layout; "empty": all
+    lanes -1."""
     from gcm_tpu_torch.benchmarks.spmm_variants import block_diagonal_coo
     from gcm_tpu_torch.ops.cuda import spmm_win as win_mod
 
     n_win = N // 128
-    if case == "sweep":
-        x, edges, w = variant_inputs("wide", B, N, F, 8192, seed)
+    if case in ("sweep", "descending"):
+        x, edges, w = variant_inputs(
+            "wide" if case == "sweep" else case, B, N, F,
+            8192 if case == "sweep" else n_win * cap, seed)
         be, bw, counts = win_mod.bucket_by_sink_window(edges, w, N, cap=cap)
         overflow = win_mod.window_overflow(counts, cap)
         check(overflow is None, f"spmm_win {case}: {overflow}")
@@ -1400,6 +1429,12 @@ WIN_CASES = [
     ("odd", 3, 256, 13, 500, "f32", False),
     ("odd", 3, 256, 13, 500, "bf16", False),
     ("empty", 4, 128, 32, 64, "f32", False),
+    # the sink-sorted kernel's branches in window mode: a hot row over two
+    # passes (cap 8,704), full segments of descending sinks at F = 260 in
+    # both modes
+    ("hot row", 2, 256, 130, 8704, "f32", False),
+    ("descending", 4, 512, 260, 1024, "f32", False),
+    ("descending", 4, 512, 260, 1024, "bf16", False),
 ]
 
 

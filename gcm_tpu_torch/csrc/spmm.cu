@@ -12,13 +12,16 @@
 // 4*B*(N*F + 3*E) bytes, and the output written once, 4*B*N*F bytes, against
 // 2*B*E_valid*F flops: at the model's shapes it is bound by bytes (well under
 // a microsecond at 3.35 TB/s) and in practice by latency, since a call is a
-// few hundred small blocks.
+// few hundred small blocks; at the sweep's point by the row gathers from L2,
+// 4*B*E_valid*F bytes.
 //
-// What the design does about it: the tile kernel of edge_tile.cuh, each
-// block reading the whole edge list of its batch element (one block per
-// batch element, tile of sink rows and feature columns; lanes compacted in
-// shared memory in order; each output summed by one thread in lane order,
-// each product and add rounded once, no atomics).
+// What the design does about it: the edge-list kernel of edge_tile.cuh, on
+// the sink-sorted row sum of sink_sort.cuh: a block owns a batch element, a
+// tile of sink rows (the whole graph up to 1,024 rows; smaller tiles only to
+// fill the SMs at small batches) and a tile of feature columns, reads the
+// edge list once, sorts its lanes by sink row in shared memory (stable), and
+// each warp sums whole rows in registers in lane order, each product and
+// add rounded once, with no atomics on floats.
 //
 // The same kernel, with kBf16 set, also replaces the bf16 mode of the
 // one-hot SpMM experiment benchmarks/spmm_variants.py::pallas_onehot_dtype

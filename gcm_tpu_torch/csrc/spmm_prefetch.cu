@@ -13,79 +13,52 @@
 //
 // What bounds it on an H100: the function reads x and the slots once,
 // 4*B*(N*F + 3*n_blocks*K) bytes, and writes out once, 4*B*num_nodes*F
-// bytes, against 2*B*E_valid*F flops: bound by bytes (~13.8 us at B=64,
-// N=512, F=128, n_blocks*K=16384). In practice it is bound by latency: each
-// thread walks all K slots of its block in order.
+// bytes, against 2*B*E_valid*F flops: bound by bytes (~12.5 us at B=64,
+// N=512, F=128, n_blocks*K=16384). In practice the row gathers bound it,
+// 4*B*E_valid*F bytes from L2 (~268 MB at that point).
 //
-// What the design does about it: one block per (batch element, sink block,
-// tile of kFeat = 64 feature columns), one thread per column. The block's
-// out tile [S, kFeat] sits in shared memory (32 KB at S = 128; above 48 KB
-// it is opted in, up to the SM's 227 KB), the slots are staged kFeat at a
-// time with coalesced loads, and each thread adds w * x[src] into its
-// column slot after slot, each product and each add rounded once
-// (__fmul_rn, __fadd_rn), as the TPU kernel's float32 loop added them: the
-// plain version, which adds in the same order, agrees with it bitwise. No
-// atomics: reruns are bitwise equal.
+// What the design does about it: the sink-sorted row sum of sink_sort.cuh.
+// A block owns one (batch element, sink block) - or a tile of at most
+// 1,024 of its rows - and a tile of feature columns. It reads the block's
+// K slots once, sorts them by local sink in shared memory (stable: a row's
+// slots stay in slot order), and each warp sums whole rows in registers,
+// several gathers in flight, and writes out[b, j*S + s, :] once. Each
+// product and each add is rounded once (__fmul_rn, __fadd_rn) in slot
+// order, as the TPU kernel's float32 loop added them: the plain version,
+// which adds in the same order, agrees with it bitwise. No atomics on
+// floats: reruns are bitwise equal. Any S is taken: a sink block of more
+// than 1,024 rows goes in row tiles, each reading the block's slots.
 
-#include <cuda_runtime.h>
+#include "sink_sort.cuh"
 
 namespace {
 
-constexpr int kFeat = 64;                      // feature columns per block
-constexpr int kMaxSmem = 232448;               // per block, opted in
-
-// the tile [S][kFeat] and one staged slot (sl, src, w) per thread
-size_t smem_bytes(int S) {
-  return size_t(S) * kFeat * sizeof(float) +
-         size_t(kFeat) * (2 * sizeof(int) + sizeof(float));
-}
-
-__global__ void __launch_bounds__(kFeat)
+template <int V>
+__global__ void __launch_bounds__(sink_sort::kThreads, sink_sort::kMinBlocks)
 spmm_prefetch_kernel(const float* __restrict__ x, const int* __restrict__ sl,
                      const int* __restrict__ src, const float* __restrict__ w,
                      float* __restrict__ out, int N, int F, int S, int nblk,
-                     int K) {
-  extern __shared__ float smem[];
-  float* tile = smem;                                   // [S][kFeat]
-  int* s_sl = reinterpret_cast<int*>(tile + size_t(S) * kFeat);
-  int* s_src = s_sl + kFeat;
-  float* s_w = reinterpret_cast<float*>(s_src + kFeat);
-
-  const int j = blockIdx.x, b = blockIdx.z, tid = threadIdx.x;
-  const int f = blockIdx.y * kFeat + tid;
+                     int K, const sink_sort::Plan p) {
+  extern __shared__ int smem[];
+  __shared__ int s_part[sink_sort::kWarps];
+  const int b = blockIdx.y;
+  const int ft = blockIdx.x % p.ftiles, tile = blockIdx.x / p.ftiles;
+  const int j = tile / p.rtiles, row0 = tile % p.rtiles * p.R;
   const size_t slots = (size_t(b) * nblk + j) * K;
-  const float* x_b = x + size_t(b) * N * F;
-
-  for (int i = tid; i < S * kFeat; i += kFeat) tile[i] = 0.0f;
-
-  for (int base = 0; base < K; base += kFeat) {
-    __syncthreads();  // the tile is zeroed, or the last slots are consumed
-    const int k = base + tid;
-    if (k < K) {
-      s_sl[tid] = sl[slots + k];
-      s_src[tid] = min(max(src[slots + k], 0), N - 1);
-      s_w[tid] = w[slots + k];
-    } else {
-      s_sl[tid] = -1;
-    }
-    __syncthreads();
-    if (f < F) {
-      for (int t = 0; t < kFeat; ++t) {
-        const int s = s_sl[t];
-        if (s < 0 || s >= S) continue;
-        float* cell = tile + s * kFeat + tid;
-        *cell = __fadd_rn(
-            *cell, __fmul_rn(s_w[t], __ldg(x_b + size_t(s_src[t]) * F + f)));
-      }
-    }
-  }
-  __syncthreads();
-
-  if (f < F) {
-    float* out_b = out + (size_t(b) * nblk * S + size_t(j) * S) * F;
-    for (int s = 0; s < S; ++s)
-      out_b[size_t(s) * F + f] = tile[s * kFeat + tid];
-  }
+  sink_sort::Tile t;
+  t.x = x + size_t(b) * N * F;
+  t.sink = sl + slots;
+  t.src = src + slots;
+  t.w = w + slots;
+  t.n = K;
+  t.base = row0;
+  t.rows = min(p.R, S - row0);
+  t.out = out + ((size_t(b) * nblk + j) * S + row0) * F;
+  int* s_src = smem + p.R * sink_sort::kWarps;
+  const int f = (ft * 32 + (threadIdx.x & 31)) * V;
+  sink_sort::sum_tile<V, false, true>(t, N, F, f, p.cap, smem, s_src,
+                                      reinterpret_cast<float*>(s_src + p.cap),
+                                      s_part);
 }
 
 }  // namespace
@@ -93,30 +66,27 @@ spmm_prefetch_kernel(const float* __restrict__ x, const int* __restrict__ sl,
 extern "C" {
 
 // x [B,N,F] f32, sl/src [B,nblk,K] int32, w [B,nblk,K] f32, out
-// [B,nblk*S,F] f32, all contiguous on `device`; S at most 905 (the shared
-// memory of smem_bytes). Returns a cudaError_t code (0 on success).
+// [B,nblk*S,F] f32, all contiguous on `device`. Returns a cudaError_t code
+// (0 on success).
 int gcm_spmm_prefetch_f32(const void* x, const void* sl, const void* src,
                           const void* w, void* out, int B, int N, int F,
                           int S, int nblk, int K, int device, void* stream) {
-  const size_t smem = smem_bytes(S);
   if (B < 1 || B > 65535 || N < 1 || F < 1 || S < 1 || nblk < 1 ||
-      nblk > 65535 || K < 1 || smem > size_t(kMaxSmem))
+      nblk > 65535 || K < 1)
     return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(spmm_prefetch_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(smem));
-    if (err != cudaSuccess) return int(err);
-  }
-  const dim3 grid(nblk, (F + kFeat - 1) / kFeat, B);
-  spmm_prefetch_kernel<<<grid, kFeat, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(sl),
-      static_cast<const int*>(src), static_cast<const float*>(w),
-      static_cast<float*>(out), N, F, S, nblk, K);
-  return int(cudaGetLastError());
+  const sink_sort::Plan p =
+      sink_sort::plan(F, S, (long long)B * nblk, K, x, out);
+  return sink_sort::with_width(p, [&](auto v) {
+    return sink_sort::launch(spmm_prefetch_kernel<decltype(v)::value>, p, B,
+                             static_cast<cudaStream_t>(stream),
+                             static_cast<const float*>(x),
+                             static_cast<const int*>(sl),
+                             static_cast<const int*>(src),
+                             static_cast<const float*>(w),
+                             static_cast<float*>(out), N, F, S, nblk, K);
+  });
 }
 
 }  // extern "C"

@@ -21,19 +21,19 @@
 //
 // What bounds it on an H100: the function reads x and the bucketed lanes
 // once, 4*B*(N*F + 3*n_win*cap) bytes, and writes out once, 4*B*N*F bytes,
-// against 2*B*E_valid*F flops: bound by bytes (~13.8 us at B=64, N=512,
-// F=128, cap=4096).
+// against 2*B*E_valid*F flops: bound by bytes (~12.5 us at B=64, N=512,
+// F=128, cap=4096, a padding lane read as its sink alone). In practice the
+// row gathers bound it, 4*B*E_valid*F bytes from L2.
 //
-// What the design does about it: the tile kernel of edge_tile.cuh, which
-// csrc/spmm.cu runs over the whole edge list (a block owns one batch
-// element, a tile of sink rows and feature columns; lanes compacted in
-// shared memory with warp ballots, order kept; the warp that owns a sink row
-// sums it in registers), here with each block's tile inside one window and
-// the block reading only that window's segment: cap lanes instead of the
-// whole list. Every output element is summed by one thread in lane order and
-// written once: no atomics, so reruns are bitwise equal. The four row tiles
-// of a window each re-read its segment; a sink-sorted pass would not, and
-// is left to a later version.
+// What the design does about it: the edge-list kernel of edge_tile.cuh,
+// which csrc/spmm.cu runs over the whole edge list, here with each block's
+// row tile one window (or a half or quarter of one, only to fill the SMs at
+// small batches) and the block reading only that window's segment: cap
+// lanes, read once per feature tile, sorted by sink row in shared memory
+// (stable: a row's lanes stay in lane order); each warp sums whole rows in
+// registers, several gathers in flight. Every output element is summed by
+// one thread in lane order and written once: no atomics on floats, so
+// reruns are bitwise equal.
 
 #include "edge_tile.cuh"
 

@@ -11,7 +11,8 @@ out of range undefined; here a source is clamped into 0..N-1 (as its
 interpret mode and gather_nodes do) and a slot whose local sink lies
 outside 0..S-1 adds nothing, where the interpret mode wrote the block's
 last row. Each row is summed in float32 slot after slot, as the TPU
-kernel added it.
+kernel added it; the kernel sorts a block's slots by local sink (stably) and
+sums each row in that order, for any number of rows per block.
 
 `spmm_prefetch_bucketed` launches csrc/spmm_prefetch.cu for CUDA tensors,
 or raises, and takes the plain version, `spmm_prefetch_plain`, only for
@@ -30,10 +31,6 @@ from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.cuda._launch import (check_cuda, check_forward_only,
                                             check_rc, ptr, stream_of)
 from gcm_tpu_torch.ops.scatter import in_order_slots, in_order_sum
-
-# rows per sink block the kernel's shared-memory tile holds: S * 256 bytes
-# of tile (64 float32 columns) and 768 of staged slots within the SM's 227 KB
-MAX_ROWS_PER_BLOCK = (232448 - 768) // 256
 
 
 def spmm_prefetch_plain(x, sl, src, w, num_nodes: int,
@@ -71,9 +68,6 @@ def _launch(x, sl, src, w, num_nodes):
         raise ValueError(f"the kernel takes 1 <= B, n_blocks <= 65535 and N,"
                          f" F, K >= 1; got B={B} n_blocks={nblk} N={N} F={F}"
                          f" K={K}")
-    if S > MAX_ROWS_PER_BLOCK:
-        raise ValueError(f"{S} rows per sink block; the kernel's shared "
-                         f"memory holds at most {MAX_ROWS_PER_BLOCK}")
     dev = x.device
     check_cuda("x", x, (B, N, F), dev)
     check_cuda("sl", sl, (B, nblk, K), dev, torch.int32)

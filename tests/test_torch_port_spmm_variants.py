@@ -454,6 +454,21 @@ def lane_loop(x, dest, src, w):
     return out
 
 
+def sorted_row_sum(x, dest, src, w):
+    """The sink-sorted kernels' order (csrc/sink_sort.cuh) in numpy: each
+    batch element's lanes stably sorted by dest, then each row summed over
+    its lanes in that order from 0 in float32 (each product and add rounded
+    once); dest outside 0..rows-1 adds nothing."""
+    out = np.zeros_like(x)
+    for b in range(x.shape[0]):
+        ok = (dest[b] >= 0) & (dest[b] < x.shape[1])
+        for e in np.argsort(np.where(ok, dest[b], -1), kind="stable"):
+            if ok[e]:
+                d = dest[b, e]
+                out[b, d] = out[b, d] + np.float32(w[b, e]) * x[b, src[b, e]]
+    return out
+
+
 def test_plain_versions_add_in_lane_order():
     """Each plain version is bitwise the lane-by-lane float32 sum that its
     kernel computes (the chip check then holds kernel and plain version
@@ -461,7 +476,11 @@ def test_plain_versions_add_in_lane_order():
     may pass it, changes nothing; spmm_seg's walk of its tables is lane
     order, so it equals spmm_pairs on the same sink-sorted layout; the
     window layout keeps each sink's lanes in order, so spmm_win's plain
-    version sums exactly the edge list's lane-by-lane sum."""
+    version sums exactly the edge list's lane-by-lane sum. The edge-list,
+    window and per-edge plain versions are also bitwise the sink-sorted
+    kernels' order, a stable sort by sink and then one sum a row, on a hot
+    row, sinks descending in lane order, and odd lanes (the -1 sentinel,
+    indices of N or more, a window's lanes outside it)."""
     B, N, E, F, cap = 2, 256, 900, 5, 256
     x, edges, w = graph(B, N, E, F, seed=12)
     edges[:, 0, :150] = 9  # a segment over two 128-lane chunks
@@ -516,6 +535,49 @@ def test_plain_versions_add_in_lane_order():
             prefetch_mod.spmm_prefetch_plain(tx, sl, psrc, pw, N,
                                              depth).numpy(), want,
             err_msg=f"prefetch depth={depth}")
+
+    # the sink-sorted order on raw lanes, as the kernels take them
+    B, N, F, E, nw, nblk = 2, 256, 5, 768, 2, 4
+    S = N // nblk
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((B, N, F)).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, (B, E)).astype(np.float32)
+    for case in ("hot row", "descending", "odd"):
+        edges = rng.integers(0, N, (B, 2, E)).astype(np.int32)
+        if case == "hot row":
+            edges[:, 0] = 7
+        elif case == "descending":
+            edges[:, 0] = N - 1 - np.arange(E) * N // E
+        edges[:, 0, 5::9] = -1
+        edges[:, 1, 7::11] = -1
+        edges[:, 0, 8::13] = N + 1
+        edges[:, 1, 9::17] = N
+        sink, src = edges[:, 0].astype(np.int64), edges[:, 1]
+        src_ok = (src >= 0) & (src < N)
+        tx, te, tw = t(x, edges, w)
+        np.testing.assert_array_equal(
+            spmm_mod.spmm_edge_list_plain(tx, te, tw).numpy(),
+            sorted_row_sum(x, np.where(src_ok, sink, -1), src, w),
+            err_msg=f"edge_list {case}")
+        # the lanes as a window layout, E / nw lanes a segment
+        lo = np.repeat(np.arange(nw) * 128, E // nw)
+        dest = np.where(src_ok & (sink >= lo) & (sink < lo + 128), sink, -1)
+        np.testing.assert_array_equal(
+            win_mod.spmm_win_plain(tx, te, tw, N, E // nw).numpy(),
+            sorted_row_sum(x, dest, src, w), err_msg=f"win {case}")
+        # the lanes as per-edge slots of nblk sink blocks: local sinks
+        # sink // 4 - 1, some S or more; sources clamped
+        sl = (sink // 4 - 1).reshape(B, nblk, -1).astype(np.int32)
+        sl[..., 3::19] = S
+        j = np.arange(nblk)[None, :, None]
+        dest = np.where((sl >= 0) & (sl < S), j * S + sl, -1)
+        np.testing.assert_array_equal(
+            prefetch_mod.spmm_prefetch_plain(
+                tx, *t(sl, src.reshape(B, nblk, -1), w.reshape(B, nblk, -1)),
+                N).numpy(),
+            sorted_row_sum(x, dest.reshape(B, -1), np.clip(src, 0, N - 1),
+                           w),
+            err_msg=f"prefetch {case}")
 
 
 def test_guards():
