@@ -259,6 +259,7 @@ def kernel_row(name, shape, main_path, kernel, plain, library, bound,
     row = dict(kernel=name, **shape, main_path=main_path, max_abs_err=err,
                bitwise_repeatable=bitwise_equal(got, again),
                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               x_bound=ms / bound[0],
                call_ms=call_ms, plain_call_ms=plain_call_ms,
                library_call_ms=library_call_ms,
                library_max_abs_err=lib_err, bound_ms=bound[0],
@@ -1228,8 +1229,13 @@ def variant_case(kernel, case, B, N, F, E, mode, seed, main_path):
     depth = lanes_per_sink(edges, N)
     shape = dict(case=case, B=B, N=N, F=F, E=E, mode=mode)
     xy = 2 * B * N * F  # x read once, out written once; and the lanes
-    if kernel == "spmm_pairs":
+    if kernel in ("spmm_pairs", "spmm_seg"):
+        # pair_cap, raised to the multiple of 128 that holds the fullest
+        # bucket (a hot row's): no edge is dropped
         cap = pair_cap(N, E)
+        fullest = int(spmm2.bucket_edges_pairs(edges, w, N, cap)[2].max())
+        cap = max(cap, -(-fullest // 128) * 128)
+    if kernel == "spmm_pairs":
         be, bw, counts = spmm2.bucket_edges_pairs(edges, w, N, cap)
         spmm2.check_bucket_overflow(counts, cap)
         shape["cap"] = cap
@@ -1237,11 +1243,13 @@ def variant_case(kernel, case, B, N, F, E, mode, seed, main_path):
                lambda: spmm2.spmm_pairs_plain(x, be, bw, cap, mode, depth))
         nbytes = 4 * xy + lane_bytes(be[:, 0])
     elif kernel == "spmm_seg":
-        cap = pair_cap(N, E)
         be, bw, begin, end, tot = spmm_seg.bucket_edges_segments(edges, w, N,
                                                                  cap)
         spmm2.check_bucket_overflow(tot, cap)
         shape["cap"] = cap
+        if case == "clamped tables":  # begin < 0 and end > 128 here and there
+            begin.view(-1)[::5] -= 7
+            end.view(-1)[3::7] += 40
         # the kernel walks each sink's table segments, which a sink of N or
         # more spills into the next lanes' (as in JAX): the longest walk
         lens = (end.clamp(max=128) - begin.clamp(min=0)).clamp(min=0)
@@ -1315,6 +1323,27 @@ VARIANT_CASES = [
     ("spmm_prefetch", "descending", 4, 512, 260, 4096, 4, False),
     ("spmm_prefetch", "one block", 64, 905, 64, 4096, 1, False),
     ("spmm_prefetch", "one block", 64, 4100, 13, 16384, 1, False),
+    # the sink-sorted pair kernel's branches, both modes: a hot row over two
+    # passes (cap 2,432), descending sinks at F = 260, windows of
+    # 10,240 lanes (cap 2,560: two passes), one batch element whose windows
+    # plan() splits into four row tiles of 32 rows (F = 64: one column a
+    # lane); "odd" above has sources outside their buckets' windows
+    ("spmm_pairs", "hot row", 2, 512, 130, 9000, "f32x2", False),
+    ("spmm_pairs", "hot row", 2, 512, 130, 9000, "bf16", False),
+    ("spmm_pairs", "descending", 4, 512, 260, 4096, "f32x2", False),
+    ("spmm_pairs", "descending", 4, 512, 260, 4096, "bf16", False),
+    ("spmm_pairs", "two passes", 2, 512, 128, 20480, "f32x2", False),
+    ("spmm_pairs", "two passes", 2, 512, 128, 20480, "bf16", False),
+    ("spmm_pairs", "row tiles", 1, 256, 64, 2048, "f32x2", False),
+    ("spmm_pairs", "row tiles", 1, 256, 64, 2048, "bf16", False),
+    # the batched walk's branches: 40 table entries a row (N = 1,024, cap
+    # 640: two rounds of 32), a hot row of 2,000 lanes over eight or more
+    # chunks, tables with begin < 0 and end > 128 at F = 64, descending
+    # sinks at F = 260 (float4 columns; "odd" above takes F = 13, scalar)
+    ("spmm_seg", "many entries", 4, 1024, 128, 20480, None, False),
+    ("spmm_seg", "hot row", 2, 256, 128, 2000, None, False),
+    ("spmm_seg", "clamped tables", 3, 512, 64, 4096, None, False),
+    ("spmm_seg", "descending", 4, 512, 260, 4096, None, False),
 ]
 
 
@@ -1703,6 +1732,21 @@ KERNEL_META = {
 }
 
 
+def ptxas_lines(src: str) -> list[str]:
+    """The lines of a source's build log (-Xptxas -v) that give each
+    kernel's registers and spills, each led by its source and kernel."""
+    from gcm_tpu_torch.ops import _build
+
+    lines, kernel = [], "?"
+    for ln in _build.build_log(src).splitlines():
+        if "Compiling entry function" in ln:
+            kernel = ln.split("'")[1]
+        elif "registers" in ln or "spill" in ln:
+            lines.append(f"{src} {kernel}: "
+                         + ln.replace("ptxas info    :", "").strip())
+    return lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1733,9 +1777,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     waited = _build.build_all()
-    ptxas = [ln.strip() for src in waited for ln in
-             _build.build_log(src).splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = [ln for src in waited for ln in ptxas_lines(src)]
     emit("build", seconds=time.perf_counter() - t0, sources=waited,
          ptxas=ptxas)
 

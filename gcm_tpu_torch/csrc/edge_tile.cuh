@@ -53,9 +53,11 @@ kernel(const float* __restrict__ x, const int* __restrict__ edges,
   t.out = out + (size_t(b) * N + row0) * F;
   int* s_src = smem + p.R * sink_sort::kWarps;
   const int f = (ft * 32 + (threadIdx.x & 31)) * V;
-  sink_sort::sum_tile<V, kBf16, false>(t, N, F, f, p.cap, smem, s_src,
-                                       reinterpret_cast<float*>(s_src + p.cap),
-                                       s_part);
+  constexpr sink_sort::Round kRound =
+      kBf16 ? sink_sort::Round::kBf16 : sink_sort::Round::kF32;
+  sink_sort::sum_tile<V, kRound, sink_sort::Src::kDrop>(
+      t, N, F, f, p.cap, smem, s_src, reinterpret_cast<float*>(s_src + p.cap),
+      s_part);
 }
 
 // Launches the kernel over B batch elements and N rows on `stream`;

@@ -1,11 +1,15 @@
 // The sink-sorted row sum shared by the SpMM kernels of csrc/edge_tile.cuh
-// (spmm_edge_list, spmm_onehot_dtype, spmm_win) and csrc/spmm_prefetch.cu.
+// (spmm_edge_list, spmm_onehot_dtype, spmm_win), csrc/spmm_prefetch.cu and
+// csrc/spmm_pairs.cu.
 //
 // One block owns a tile of `rows` output rows and a tile of feature columns
 // of one batch element, and the lanes (sink, source, weight) that may add
 // to them, in lane order. A lane adds w * x[src] to row sink - base when
-// 0 <= sink - base < rows (and, unless the source is clamped, 0 <= src <
-// N); any other lane adds nothing.
+// 0 <= sink - base < rows; its source follows the kernel's rule (Src): a
+// lane with a source outside 0..N-1 adds nothing (kDrop), or reads it
+// clamped into 0..N-1 (kClamp), or, where the lanes are pair buckets of
+// `bucket` lanes a 128-row source window, lane e of the tile reads row
+// kc*128 + clamp(src - kc*128, 0, 127) with kc = e / bucket (kBucket).
 //
 // The design, per pass of at most kMaxLanes lanes:
 // 1. warp w takes a contiguous span of the pass in rounds of 32 lanes; each
@@ -47,11 +51,13 @@
 // are read or written once per feature tile; a block reads its lanes once
 // per row tile.
 //
-// With kBf16 set, x is rounded to bf16 as it is read and each weighted
-// message w * x is rounded to bf16 (round to nearest even, after a float32
-// product) before the float32 add: the two rounding points of the one-hot
-// experiments' bf16 matmuls. The conversions go two floats at a time
-// (cvt.rn.bf16x2.f32), which halves the conversion unit's share.
+// Rounding (Round): kF32 adds each float32 message as it is. kBf16 rounds x
+// to bf16 as it is read and each weighted message w * x to bf16 (round to
+// nearest even, after a float32 product) before the float32 add: the two
+// rounding points of the one-hot experiments' bf16 matmuls. kBf16Msg rounds
+// only the message, as the pair kernel's bf16 pass does. The conversions go
+// two floats at a time (cvt.rn.bf16x2.f32), which halves the conversion
+// unit's share.
 
 #pragma once
 
@@ -72,7 +78,11 @@ constexpr int kRounds = kMaxLanes / kThreads;  // lanes a thread holds
 constexpr int kMaxRows = 1024;                 // rows of a block's tile
 constexpr int kUnroll = 4;                     // gathers in flight a warp
 constexpr int kSMs = 132;                      // H100 SXM
+constexpr int kBucketRows = 128;               // a pair bucket's window
 static_assert((kWarps & (kWarps - 1)) == 0, "slot() swizzles by kWarps");
+
+enum class Round { kF32, kBf16, kBf16Msg };
+enum class Src { kDrop, kClamp, kBucket };
 
 template <int V>
 struct Vec {
@@ -117,17 +127,26 @@ __device__ __forceinline__ float2 round_bf16x2(float a, float b) {
   return __bfloat1622float2(__floats2bfloat162_rn(a, b));
 }
 
-template <bool kBf16, int V>
+__device__ __forceinline__ float round_bf16(float a) {
+  return __bfloat162float(__float2bfloat16_rn(a));
+}
+
+template <Round kRound, int V>
 __device__ __forceinline__ void add_msg(Vec<V>& acc, float w,
                                         const Vec<V>& x) {
-  if constexpr (!kBf16) {
+  if constexpr (kRound == Round::kF32) {
 #pragma unroll
     for (int q = 0; q < V; ++q)
       acc.v[q] = __fadd_rn(acc.v[q], __fmul_rn(w, x.v[q]));
+  } else if constexpr (kRound == Round::kBf16Msg && V == 1) {
+    acc.v[0] = __fadd_rn(acc.v[0], round_bf16(__fmul_rn(w, x.v[0])));
+  } else if constexpr (kRound == Round::kBf16Msg) {
+    const float2 m = round_bf16x2(__fmul_rn(w, x.v[0]), __fmul_rn(w, x.v[1]));
+    acc.v[0] = __fadd_rn(acc.v[0], m.x);
+    acc.v[1] = __fadd_rn(acc.v[1], m.y);
   } else if constexpr (V == 1) {  // the message rounded twice, an f32 add
-    const float xr = __bfloat162float(__float2bfloat16_rn(x.v[0]));
-    acc.v[0] = __fadd_rn(
-        acc.v[0], __bfloat162float(__float2bfloat16_rn(__fmul_rn(w, xr))));
+    acc.v[0] = __fadd_rn(acc.v[0],
+                         round_bf16(__fmul_rn(w, round_bf16(x.v[0]))));
   } else {
     const float2 xr = round_bf16x2(x.v[0], x.v[1]);
     const float2 m = round_bf16x2(__fmul_rn(w, xr.x), __fmul_rn(w, xr.y));
@@ -182,14 +201,14 @@ struct Tile {
   int n;            // lanes
   int base;         // a lane's tile row is sink - base
   int rows;         // rows in the tile
+  int bucket;       // Src::kBucket: lanes a pair bucket holds
   float* out;       // the tile's first output row, column 0
 };
 
 // Shared memory: hist [rows * kWarps] ints, then s_src [cap] ints and s_w
 // [cap] floats (Plan::smem); s_part [kWarps] ints. f: this thread's first
-// feature column. kClampSrc: a source is clamped into 0..N-1 (else a lane
-// with one outside adds nothing).
-template <int V, bool kBf16, bool kClampSrc>
+// feature column.
+template <int V, Round kRound, Src kSrc>
 __device__ __forceinline__ void sum_tile(const Tile& t, int N, int F, int f,
                                          int cap, int* hist, int* s_src,
                                          float* s_w, int* s_part) {
@@ -209,7 +228,7 @@ __device__ __forceinline__ void sum_tile(const Tile& t, int N, int F, int f,
       if (e < s1) {  // both loads issued before either test
         const unsigned r = unsigned(__ldg(t.sink + e)) - unsigned(t.base);
         const bool src_ok =
-            kClampSrc || unsigned(__ldg(t.src + e)) < unsigned(N);
+            kSrc != Src::kDrop || unsigned(__ldg(t.src + e)) < unsigned(N);
         if (r < unsigned(t.rows) && src_ok) key[k] = int(r);
       }
     }
@@ -231,7 +250,13 @@ __device__ __forceinline__ void sum_tile(const Tile& t, int N, int F, int f,
         const int e = s0 + 32 * k + lane;
         const int pos = *cursor + __popc(peers & below);
         const int s = __ldg(t.src + e);
-        s_src[pos] = kClampSrc ? min(max(s, 0), N - 1) : s;
+        if constexpr (kSrc == Src::kBucket) {
+          // e counts from the tile's first lane, whatever the pass
+          const int lo = e / t.bucket * kBucketRows;
+          s_src[pos] = lo + min(max(s - lo, 0), kBucketRows - 1);
+        } else {
+          s_src[pos] = kSrc == Src::kClamp ? min(max(s, 0), N - 1) : s;
+        }
         s_w[pos] = __ldg(t.w + e);
       }
       __syncwarp();
@@ -266,7 +291,7 @@ __device__ __forceinline__ void sum_tile(const Tile& t, int N, int F, int f,
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u)
-          if (k + u < end) add_msg<kBf16>(acc, wv[u], xv[u]);
+          if (k + u < end) add_msg<kRound>(acc, wv[u], xv[u]);
       }
       store<V>(orow, acc);
     }

@@ -21,135 +21,57 @@
 //
 // What bounds it on an H100: the function reads x and the bucketed lanes
 // once, 4*B*(N*F + 3*P*cap) bytes, and writes out once, 4*B*N*F bytes,
-// against 2*B*E_valid*F flops: bound by bytes (~13.8 us at B=64, N=512,
-// F=128, cap=1024).
+// against 2*B*E_valid*F flops: bound by bytes (~12.5 us at B=64, N=512,
+// F=128, cap=1024). In practice the row gathers bound it, 4*B*E_valid*F
+// bytes from L2 (~268 MB at that point).
 //
-// What the design does about it: the design of csrc/spmm.cu (one block per
-// batch element, tile of kRows sink rows and kFeat feature columns; lanes
-// compacted in shared memory with warp ballots, order kept; the warp that
-// owns a sink row sums it in registers), with each block reading only the
-// nw buckets of its own sink window, kc ascending: nw*cap lanes instead of
-// the whole list. Every output element is summed by one thread in lane
-// order and written once: no atomics, so reruns are bitwise equal. The nw
-// row tiles of a window each re-read its buckets; a sink-sorted pass would
-// not, and is left to a later version.
+// What the design does about it: the sink-sorted row sum of sink_sort.cuh,
+// one group per (batch element, sink window ks). Window ks's nw buckets lie
+// contiguously, kc ascending, in the plain version's lane order, so a
+// stable sort of those lanes by sink row gives each row its lanes in that
+// order, and the window test is the tile-row test itself. A block reads
+// its window's nw*cap lanes once per feature tile (and row tile, where a
+// small call splits a window), sorts them in shared memory, and each warp
+// sums whole rows in registers, several gathers in flight, writing each
+// output once. A lane's bucket kc comes from its index in the window
+// (Src::kBucket), its bf16 mode rounds the message alone
+// (Round::kBf16Msg). No atomics on floats: reruns are bitwise equal. A
+// window of more than 8,192 lanes goes in passes; a hot row is one warp's
+// walk of its lanes, in order.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sink_sort.cuh"
 
 namespace {
 
-constexpr int kW = 128;                        // node window
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 32;                      // sink rows per block
-constexpr int kRowsPerWarp = kRows / kWarps;   // warp w owns rows w + 8 j
-constexpr int kColsPerLane = 4;
-constexpr int kFeat = 32 * kColsPerLane;       // feature columns per block
-constexpr int kChunk = kThreads;               // edge lanes staged per round
+constexpr int kW = sink_sort::kBucketRows;  // node window
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
+template <int V, sink_sort::Round kRound>
+__global__ void __launch_bounds__(sink_sort::kThreads, sink_sort::kMinBlocks)
 spmm_pairs_kernel(const float* __restrict__ x, const int* __restrict__ edges,
-                  const float* __restrict__ w, float* __restrict__ out,
-                  int N, int F, int cap) {
-  __shared__ int s_row[kChunk];
-  __shared__ int s_src[kChunk];
-  __shared__ float s_w[kChunk];
-  __shared__ int s_count[kWarps];
-
-  const int b = blockIdx.z;
-  const int row0 = blockIdx.x * kRows;         // inside window ks
-  const int ks = row0 / kW;
+                  const float* __restrict__ w, float* __restrict__ out, int N,
+                  int F, int cap, const sink_sort::Plan p) {
+  extern __shared__ int smem[];
+  __shared__ int s_part[sink_sort::kWarps];
+  const int b = blockIdx.y;
+  const int ft = blockIdx.x % p.ftiles, row0 = blockIdx.x / p.ftiles * p.R;
   const int nw = N / kW;
-  const int f0 = blockIdx.y * kFeat;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t lanes = size_t(nw) * nw * cap;
-  const int* sink_b = edges + size_t(b) * 2 * lanes;
-  const int* src_b = sink_b + lanes;
-  const float* w_b = w + size_t(b) * lanes;
-  const float* x_b = x + size_t(b) * N * F;
-
-  float acc[kRowsPerWarp][kColsPerLane];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int q = 0; q < kColsPerLane; ++q) acc[r][q] = 0.0f;
-
-  for (int kc = 0; kc < nw; ++kc) {
-    const size_t bucket = (size_t(ks) * nw + kc) * cap;
-    for (int base = 0; base < cap; base += kChunk) {
-      // compact this chunk to the lanes that land in the tile, in lane order
-      const int e = base + tid;
-      int r = 0, s = 0;
-      float wt = 0.0f;
-      bool keep = false;
-      if (e < cap) {
-        r = sink_b[bucket + e] - row0;
-        keep = r >= 0 && r < kRows;
-        if (keep) {
-          s = kc * kW + min(max(src_b[bucket + e] - kc * kW, 0), kW - 1);
-          wt = w_b[bucket + e];
-        }
-      }
-      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-      if (lane == 0) s_count[warp] = __popc(ballot);
-      __syncthreads();
-      int offset = 0, total = 0;
-#pragma unroll
-      for (int i = 0; i < kWarps; ++i) {
-        const int c = s_count[i];
-        offset += i < warp ? c : 0;
-        total += c;
-      }
-      if (keep) {
-        const int j = offset + __popc(ballot & ((1u << lane) - 1u));
-        s_row[j] = r;
-        s_src[j] = s;
-        s_w[j] = wt;
-      }
-      __syncthreads();
-
-      // each warp adds the lanes whose sink row it owns (a warp-uniform test)
-      for (int j = 0; j < total; ++j) {
-        const int rr = s_row[j];
-        if ((rr % kWarps) != warp) continue;
-        const int slot = rr / kWarps;
-        const float wj = s_w[j];
-        const float* xrow = x_b + size_t(s_src[j]) * F;
-#pragma unroll
-        for (int q = 0; q < kColsPerLane; ++q) {
-          const int f = f0 + lane + 32 * q;
-          if (f < F) {
-            const float xv = __ldg(xrow + f);
-#pragma unroll
-            for (int sl = 0; sl < kRowsPerWarp; ++sl) {
-              if (sl != slot) continue;
-              float m = __fmul_rn(wj, xv);
-              if constexpr (kBf16) m = round_bf16(m);
-              acc[sl][q] = __fadd_rn(acc[sl][q], m);
-            }
-          }
-        }
-      }
-      __syncthreads();  // the staging arrays are rewritten by the next chunk
-    }
-  }
-
-#pragma unroll
-  for (int sl = 0; sl < kRowsPerWarp; ++sl) {
-    const int row = row0 + warp + kWarps * sl;
-    float* orow = out + (size_t(b) * N + row) * F;
-#pragma unroll
-    for (int q = 0; q < kColsPerLane; ++q) {
-      const int f = f0 + lane + 32 * q;
-      if (f < F) orow[f] = acc[sl][q];
-    }
-  }
+  const size_t lane0 = size_t(row0 / kW) * nw * cap;  // window ks's buckets
+  sink_sort::Tile t;
+  t.x = x + size_t(b) * N * F;
+  t.sink = edges + size_t(b) * 2 * lanes + lane0;
+  t.src = t.sink + lanes;
+  t.w = w + size_t(b) * lanes + lane0;
+  t.n = nw * cap;
+  t.base = row0;
+  t.rows = p.R;  // R divides the window's 128 rows
+  t.bucket = cap;
+  t.out = out + (size_t(b) * N + row0) * F;
+  int* s_src = smem + p.R * sink_sort::kWarps;
+  const int f = (ft * 32 + (threadIdx.x & 31)) * V;
+  sink_sort::sum_tile<V, kRound, sink_sort::Src::kBucket>(
+      t, N, F, f, p.cap, smem, s_src, reinterpret_cast<float*>(s_src + p.cap),
+      s_part);
 }
 
 }  // namespace
@@ -163,16 +85,23 @@ int gcm_spmm_pairs(const void* x, const void* edges, const void* w, void* out,
                    int B, int N, int F, int cap, int bf16, int device,
                    void* stream) {
   if (B < 1 || B > 65535 || N < kW || N % kW || F < 1 || cap < kW ||
-      cap % kW)
+      cap % kW || (long long)(N / kW) * cap > INT_MAX)
     return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid(N / kRows, (F + kFeat - 1) / kFeat, B);
-  auto kernel = bf16 ? spmm_pairs_kernel<true> : spmm_pairs_kernel<false>;
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(edges),
-      static_cast<const float*>(w), static_cast<float*>(out), N, F, cap);
-  return int(cudaGetLastError());
+  const int nw = N / kW;
+  const sink_sort::Plan p =
+      sink_sort::plan(F, kW, (long long)B * nw, nw * cap, x, out);
+  return sink_sort::with_width(p, [&](auto v) {
+    constexpr int V = decltype(v)::value;
+    using sink_sort::Round;
+    return sink_sort::launch(
+        bf16 ? spmm_pairs_kernel<V, Round::kBf16Msg>
+             : spmm_pairs_kernel<V, Round::kF32>,
+        p, B, static_cast<cudaStream_t>(stream),
+        static_cast<const float*>(x), static_cast<const int*>(edges),
+        static_cast<const float*>(w), static_cast<float*>(out), N, F, cap);
+  });
 }
 
 }  // extern "C"

@@ -56,9 +56,9 @@ spmm_prefetch_kernel(const float* __restrict__ x, const int* __restrict__ sl,
   t.out = out + ((size_t(b) * nblk + j) * S + row0) * F;
   int* s_src = smem + p.R * sink_sort::kWarps;
   const int f = (ft * 32 + (threadIdx.x & 31)) * V;
-  sink_sort::sum_tile<V, false, true>(t, N, F, f, p.cap, smem, s_src,
-                                      reinterpret_cast<float*>(s_src + p.cap),
-                                      s_part);
+  sink_sort::sum_tile<V, sink_sort::Round::kF32, sink_sort::Src::kClamp>(
+      t, N, F, f, p.cap, smem, s_src, reinterpret_cast<float*>(s_src + p.cap),
+      s_part);
 }
 
 }  // namespace

@@ -454,18 +454,47 @@ def lane_loop(x, dest, src, w):
     return out
 
 
-def sorted_row_sum(x, dest, src, w):
+def sorted_row_sum(x, dest, src, w, round_msg=None):
     """The sink-sorted kernels' order (csrc/sink_sort.cuh) in numpy: each
     batch element's lanes stably sorted by dest, then each row summed over
     its lanes in that order from 0 in float32 (each product and add rounded
-    once); dest outside 0..rows-1 adds nothing."""
+    once, and each message w * x passed through round_msg where given);
+    dest outside 0..rows-1 adds nothing."""
     out = np.zeros_like(x)
     for b in range(x.shape[0]):
         ok = (dest[b] >= 0) & (dest[b] < x.shape[1])
         for e in np.argsort(np.where(ok, dest[b], -1), kind="stable"):
             if ok[e]:
                 d = dest[b, e]
-                out[b, d] = out[b, d] + np.float32(w[b, e]) * x[b, src[b, e]]
+                msg = np.float32(w[b, e]) * x[b, src[b, e]]
+                if round_msg is not None:
+                    msg = round_msg(msg)
+                out[b, d] = out[b, d] + msg
+    return out
+
+
+def round_bf16(a):
+    """float32 values rounded to bf16 (round to nearest even) and back."""
+    return torch.from_numpy(np.asarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def table_walk(x, bsrc, bw, begin, end, cap):
+    """spmm_seg's order in numpy: each sink row sums its segment
+    [max(begin, 0), min(end, 128)) of every chunk of its window's buckets,
+    kc ascending, chunks in order, lanes in order, from 0 in float32; a
+    source is read clamped into its bucket's window."""
+    B, N, F = x.shape
+    nw, nch = N // 128, cap // 128
+    out = np.zeros_like(x)
+    for b, row, kc, j in np.ndindex(B, N, nw, nch):
+        ks, s = divmod(row, 128)
+        p = ks * nw + kc
+        chunk = p * cap + j * 128
+        for i in range(chunk + max(begin[b, p, j, s], 0),
+                       chunk + min(end[b, p, j, s], 128)):
+            src = kc * 128 + min(max(bsrc[b, i] - kc * 128, 0), 127)
+            out[b, row] = out[b, row] + np.float32(bw[b, i]) * x[b, src]
     return out
 
 
@@ -476,11 +505,16 @@ def test_plain_versions_add_in_lane_order():
     may pass it, changes nothing; spmm_seg's walk of its tables is lane
     order, so it equals spmm_pairs on the same sink-sorted layout; the
     window layout keeps each sink's lanes in order, so spmm_win's plain
-    version sums exactly the edge list's lane-by-lane sum. The edge-list,
-    window and per-edge plain versions are also bitwise the sink-sorted
-    kernels' order, a stable sort by sink and then one sum a row, on a hot
-    row, sinks descending in lane order, and odd lanes (the -1 sentinel,
-    indices of N or more, a window's lanes outside it)."""
+    version sums exactly the edge list's lane-by-lane sum; spmm_seg's plain
+    version is bitwise a numpy walk of its tables in (kc, chunk, lane)
+    order, as built and with entries clamped (begin < 0, end > 128), a
+    sink's lanes over several chunks. The edge-list, window, per-edge and
+    pair plain versions are also bitwise the sink-sorted kernels' order, a
+    stable sort by sink and then one sum a row (for the pairs, a window's
+    lanes with their sources clamped into their buckets' windows, and in
+    bf16 mode each message alone rounded to bf16), on a hot row, sinks
+    descending in lane order, and odd lanes (the -1 sentinel, indices of N
+    or more, a window's lanes outside it)."""
     B, N, E, F, cap = 2, 256, 900, 5, 256
     x, edges, w = graph(B, N, E, F, seed=12)
     edges[:, 0, :150] = 9  # a segment over two 128-lane chunks
@@ -521,6 +555,24 @@ def test_plain_versions_add_in_lane_order():
                                                depth))):
             np.testing.assert_array_equal(got.numpy(), want,
                                           err_msg=f"{name} depth={depth}")
+    # spmm_seg's tables walked, as built and with entries clamped: 500
+    # lanes into sink 9, over two chunks of each of its two buckets
+    hot = edges.copy()
+    hot[:, 0, :500] = 9
+    be, bw, begin, end, tot = bucket_edges_segments(*t(hot, w), N, 384)
+    assert int(tot.max()) <= 384
+    lens = (end.clamp(max=128) - begin.clamp(min=0)).clamp(min=0)
+    assert int((lens[:, :nw, :, 9] > 0).sum(dim=(1, 2)).min()) == 4
+    for label in ("as built", "clamped"):
+        if label == "clamped":
+            begin, end = begin.clone(), end.clone()
+            begin.view(-1)[::5] -= 7
+            end.view(-1)[3::7] += 40
+            assert bool((begin < 0).any()) and bool((end > 128).any())
+        np.testing.assert_array_equal(
+            seg_mod.spmm_seg_plain(tx, be, bw, begin, end, 384).numpy(),
+            table_walk(x, be[:, 1].numpy(), bw.numpy(), begin.numpy(),
+                       end.numpy(), 384), err_msg=f"seg walk {label}")
 
     sl, psrc, pw, _ = bucket_edges_sink_blocks(te, tw, N, 4)
     S = N // 4
@@ -578,6 +630,23 @@ def test_plain_versions_add_in_lane_order():
             sorted_row_sum(x, dest.reshape(B, -1), np.clip(src, 0, N - 1),
                            w),
             err_msg=f"prefetch {case}")
+        # the first nw * nw * 128 lanes as a pair layout (cap 128): a lane
+        # of window ks adds only inside it, and reads its source clamped
+        # into the window of its bucket kc, from its index in the window
+        cap = 128
+        L = nw * nw * cap
+        e = np.arange(L)
+        ks_lo, kc_lo = e // (nw * cap) * 128, e // cap % nw * 128
+        dest = np.where((sink[:, :L] >= ks_lo) & (sink[:, :L] < ks_lo + 128),
+                        sink[:, :L], -1)
+        psrc = kc_lo + np.clip(src[:, :L] - kc_lo, 0, 127)
+        for mode, round_msg in (("f32x2", None), ("bf16", round_bf16)):
+            np.testing.assert_array_equal(
+                pairs_mod.spmm_pairs_plain(
+                    tx, te[..., :L].contiguous(), tw[:, :L].contiguous(),
+                    cap, mode).numpy(),
+                sorted_row_sum(x, dest, psrc, w[:, :L], round_msg),
+                err_msg=f"pairs {mode} {case}")
 
 
 def test_guards():
