@@ -11,7 +11,8 @@ Phases, one JSON line each:
    the device time per call and the time per call with the host's launch
    gaps (both from CUDA events) of the kernel, the plain version and a
    torch bmm/addmm chain of the same function (TF32 off), the dense
-   kernels at cases that reach every instantiation of csrc/dense_gnn.cu;
+   kernels at cases that reach every instantiation of csrc/dense_gnn.cu,
+   and an empty kernel by the same harness (the floor under small calls);
    then inputs the kernels do not take (misaligned, wrong graph size,
    float64) must raise, unlaunched;
 4. serve: the flagship DenseGCM in a SessionServer(capacity=256) for 200
@@ -38,7 +39,8 @@ Phases, one JSON line each:
    (their cdist rounds differently on the two devices: an edge may differ
    only where the float64 score lies within 1e-5 of the threshold); then,
    timed alone and in turns with the README's temporal selector, 100
-   served ticks with a profiled window each and two rounds of scans.
+   served ticks with a profiled window each (kernels and device µs per
+   tick of the three) and two rounds of scans.
 8. sweep: the SpMM variant sweep (gcm_tpu_torch/benchmarks/spmm_variants.py)
    as its script runs it: the gather probe through take_rows, take_lanes
    and take_rows_loop (each "ok"), then its 15 rows at full width, B=64,
@@ -46,11 +48,15 @@ Phases, one JSON line each:
    0.5 for bf16) and timed in edges/s, through spmm_edge_list,
    spmm_onehot_dtype, spmm_win, spmm_pairs, spmm_seg and spmm_prefetch,
    with no row of the JAX script left out.
-Phase 3 also holds spmm_edge_list (bitwise: kernel and plain version add
-in lane order) and spmm_slots (1e-5) against their plain versions beside
-one torch.sparse.mm call on a block-diagonal COO matrix of the same edges,
-sddmm_threshold_row bitwise against its plain version beside a bmm + norms
-+ compare chain, and the variant kernels spmm_pairs (f32x2, bf16),
+Phase 3 also holds spmm_edge_list and spmm_slots (bitwise: kernel and
+plain version add in the same order; slots also with sources outside their
+windows) against their plain versions beside one torch.sparse.mm call on a
+block-diagonal COO matrix of the same edges, sddmm_threshold_row bitwise
+against its plain version beside a gather + bmm + norms + compare chain,
+through both entries (curr given, and the current node and pose columns
+read in place from the nodes, as the selectors call it: the served cosine
+and spatial rows, different slices for the two, F = 5 at an unaligned
+offset and F = 128), and the variant kernels spmm_pairs (f32x2, bf16),
 spmm_seg, spmm_prefetch, spmm_onehot_dtype and spmm_win (f32, bf16)
 bitwise against theirs (which add in the kernels' order) at the sweep's
 point, at odd shapes with sentinels and out-of-range indices (spmm_win on
@@ -349,6 +355,16 @@ KERNEL_CASES = [
 ]
 
 
+def launch_floor() -> dict:
+    """The device time of one launch of an empty kernel (PyTorch's spin
+    kernel, 0 cycles) by the same harness: the floor under the smallest
+    kernel calls."""
+    ms, call_ms = time_ms(lambda: torch.cuda._sleep(0))
+    row = dict(kernel="empty", ms=ms, call_ms=call_ms)
+    emit("launch_floor", **row)
+    return row
+
+
 def refuse_all(cases, wrappers, errors=(ValueError,)) -> dict:
     """Calls each of cases, every one of which must raise one of errors
     before any of wrappers launches; emits and returns the messages."""
@@ -471,8 +487,23 @@ def spmm_case(case, B, N, F, E, seed, main_path):
     return row
 
 
+def slots_coo(srcs, ws, N):
+    """The edges of a slot layout (a source inside its window, a weight
+    other than 0) as one block-diagonal COO matrix [B*N, B*N]."""
+    from gcm_tpu_torch.ops.cuda.spmm_slots import W
+
+    B, nw, k = srcs.shape[0], N // W, srcs.shape[2]
+    s5 = srcs.reshape(B, nw, nw, k, W).long()
+    w5 = ws.reshape(B, nw, nw, k, W)
+    keep = (s5 >= 0) & (s5 < W) & (w5 != 0)
+    b, sw, kc, _, lane = keep.nonzero(as_tuple=True)
+    idx = torch.stack([b * N + sw * W + lane, b * N + kc * W + s5[keep]])
+    with torch.sparse.check_sparse_tensor_invariants():
+        return torch.sparse_coo_tensor(idx, w5[keep],
+                                       (B * N, B * N)).coalesce()
+
+
 def slots_case(case, B, N, F, k, hops, seed, main_path):
-    from gcm_tpu_torch.benchmarks.spmm_variants import block_diagonal_coo
     from gcm_tpu_torch.ops.cuda.spmm_slots import (
         W, bucket_sink_slots, check_slot_overflow, spmm_slots,
         spmm_slots_plain)
@@ -486,7 +517,10 @@ def slots_case(case, B, N, F, k, hops, seed, main_path):
                          .astype(np.float32)).cuda()
     srcs, ws, counts = bucket_sink_slots(edges, w, N, k)
     check_slot_overflow(counts, k)
-    coo = block_diagonal_coo(edges, w, N)
+    if case.startswith("out-of-range"):  # weighted slots that add nothing
+        srcs.view(-1)[::7] = -1
+        srcs.view(-1)[3::11] = W + 5
+    coo = slots_coo(srcs, ws, N)
     x2 = x.reshape(B * N, F)
     P = (N // W) ** 2
     return kernel_row(
@@ -495,7 +529,8 @@ def slots_case(case, B, N, F, k, hops, seed, main_path):
         plain=lambda: spmm_slots_plain(x, srcs, ws, k),
         library=lambda: torch.sparse.mm(coo, x2).reshape(B, N, F),
         bound=bound_ms(4 * B * (2 * F * N + 2 * P * k * W),
-                       2 * int(coo.values().numel()) * F))
+                       2 * int(coo.values().numel()) * F),
+        tol=0.0)  # bitwise equal: the plain version adds in the kernel's order
 
 
 SPMM_CASES = [
@@ -514,10 +549,22 @@ SPMM_CASES = [
     ("large N", 64, 4100, 13, 16384, False),
 ]
 SLOTS_CASES = [
-    # (case, B, N, F, k, hops, main_path)
+    # (case, B, N, F, k, hops, main_path). The direct kernel (csrc/
+    # spmm_slots.cu::spmm_slots_kernel): float4 columns, 8 threads a sink
+    # row; single columns at F = 13; 65 float4 columns over 32 threads; k =
+    # 3 at the last k before the staged kernel; 36 slots a row over five
+    # rounds of 8 gathers, some sources outside their window. The staged
+    # kernel (k >= 4, float4 columns, at least one block an SM): k = 4 and
+    # k = 12, and k = 9 with sources outside their window
     ("main path", 32, 128, 32, 1, (1,), True),
-    ("many hops", 64, 512, 128, 12, tuple(range(1, 13)), False),
     ("odd", 2, 256, 13, 2, (1, 2), False),
+    ("many columns", 2, 256, 260, 3, (1, 2, 3), False),
+    ("k boundary, direct", 64, 512, 128, 3, (1, 2, 3), False),
+    ("out-of-range sources", 4, 256, 32, 9, tuple(range(1, 10)), False),
+    ("k boundary, staged", 64, 512, 128, 4, (1, 2, 3, 4), False),
+    ("many hops", 64, 512, 128, 12, tuple(range(1, 13)), False),
+    ("out-of-range sources, staged", 64, 256, 128, 9, tuple(range(1, 10)),
+     False),
 ]
 
 
@@ -550,12 +597,13 @@ def library_sddmm(curr, nodes, num_nodes, thr, mode):
     return (score < thr) & (iota[None, :] < num_nodes[:, None])
 
 
-def sddmm_bound_ms(B, N, F, mode):
+def sddmm_bound_ms(B, N, F, mode, curr_apart=True):
     """Inputs read once, the bool row written once; the operations the
     score needs (euclidean: sub, mul, add per feature and a sqrt per node;
     cosine: the dot and the node's norm per feature, curr's norm once per
-    batch element, a sqrt, a product and a division per node)."""
-    nbytes = 4 * (B * F + B * N * F + B) + B * N
+    batch element, a sqrt, a product and a division per node). Without
+    curr_apart, curr is one of the scored rows, read with them."""
+    nbytes = 4 * (B * F * curr_apart + B * N * F + B) + B * N
     flops = (3 * B * N * F + B * N if mode == "euclidean"
              else 4 * B * N * F + 2 * B * F + 3 * B * N)
     return bound_ms(nbytes, flops)
@@ -574,20 +622,26 @@ def sddmm_case(case, B, N, F, mode, thr, seed, main_path):
                                                 mode),
         library=lambda: library_sddmm(curr, nodes, num_nodes, thr, mode),
         bound=sddmm_bound_ms(B, N, F, mode), tol=0.0)  # bitwise equal
-    got = sddmm_threshold_row(curr, nodes, num_nodes, thr, mode)
+    check_mask(sddmm_threshold_row(curr, nodes, num_nodes, thr, mode), case,
+               mode)
+    return row
+
+
+def check_mask(got, case, mode) -> None:
+    """A score row that tests something: neither all nor no edges, and
+    none from batch element 0, whose num_nodes is 0."""
     check(bool(got.any()) and not bool(got.all()),
           f"sddmm {case} {mode}: a constant mask tests nothing")
     check(not bool(got[0].any()), f"sddmm {case} {mode}: num_nodes 0 has "
           "edges")
-    return row
 
 
 SDDMM_CASES = [
-    # (case, B, N, F, mode, threshold, main_path): the served shape with
-    # CosineEdge(0.5) on the raw obs and SpatialEdge(0.25) on a 2-wide pose
-    # slice, a wide and an odd shape
-    ("served cosine", 256, 128, 8, "cosine", 0.5, True),
-    ("served spatial", 256, 128, 2, "euclidean", 0.25, True),
+    # (case, B, N, F, mode, threshold, main_path): the explicit entry at the
+    # served shape with CosineEdge(0.5) on the raw obs and SpatialEdge(0.25)
+    # on a 2-wide pose slice, a wide and an odd shape
+    ("served cosine", 256, 128, 8, "cosine", 0.5, False),
+    ("served spatial", 256, 128, 2, "euclidean", 0.25, False),
     ("wide", 64, 512, 128, "cosine", 0.0, False),
     ("wide", 64, 512, 128, "euclidean", 16.0, False),
     ("odd", 3, 13, 5, "cosine", 0.2, False),
@@ -595,12 +649,61 @@ SDDMM_CASES = [
 ]
 
 
+def sddmm_current_case(case, B, N, F, cols, curr_cols, mode, thr, seed,
+                       main_path):
+    """The current-node entry as the selectors call it: the current node
+    and both column ranges read from nodes [B,N,F] in place."""
+    from gcm_tpu_torch.ops.cuda.sddmm import (
+        current_node, sddmm_threshold_row_current,
+        sddmm_threshold_row_current_plain)
+
+    _, nodes, num_nodes = sddmm_inputs(B, N, F, seed)
+    num_nodes[1] = N + 3  # clamped to N - 1
+    cols, curr_cols = slice(*cols), slice(*curr_cols or cols)
+    width = cols.stop - cols.start
+    row = kernel_row(
+        "sddmm_threshold_row", dict(case=case, B=B, N=N, F=F, mode=mode,
+                                    threshold=thr, cols=str(cols),
+                                    curr_cols=str(curr_cols)), main_path,
+        kernel=lambda: sddmm_threshold_row_current(nodes, num_nodes, thr,
+                                                   mode, cols, curr_cols),
+        plain=lambda: sddmm_threshold_row_current_plain(
+            nodes, num_nodes, thr, mode, cols, curr_cols),
+        library=lambda: library_sddmm(
+            current_node(nodes, num_nodes)[:, curr_cols], nodes[:, :, cols],
+            num_nodes, thr, mode),
+        bound=sddmm_bound_ms(B, N, width, mode,
+                             curr_apart=curr_cols != cols),
+        tol=0.0)  # bitwise equal
+    check_mask(sddmm_threshold_row_current(nodes, num_nodes, thr, mode, cols,
+                                           curr_cols), case, mode)
+    return row
+
+
+SDDMM_CURRENT_CASES = [
+    # (case, B, N, F, cols, curr_cols (None: cols), mode, threshold,
+    # main_path): the served CosineEdge(0.5) and SpatialEdge(0.25, pose
+    # 0:2) rows as the selectors ask for them, different pose slices at
+    # column offsets, F = 5 at the unaligned offset 3 (scalar loads), and
+    # F = 128 (float4 loads)
+    ("served cosine current", 256, 128, 8, (0, 8), None, "cosine", 0.5,
+     True),
+    ("served spatial current", 256, 128, 8, (0, 2), None, "euclidean", 0.25,
+     False),
+    ("a != b slices", 256, 128, 8, (4, 6), (1, 3), "euclidean", 0.5, False),
+    ("odd at offset 3", 3, 13, 11, (3, 8), None, "cosine", 0.2, False),
+    ("wide current", 64, 512, 128, (0, 128), None, "cosine", 0.0, False),
+]
+
+
 def sddmm_refusal_phase() -> None:
     """Inputs the score-row kernel does not take raise on the card before
     any launch."""
-    from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
+    from gcm_tpu_torch.ops.cuda.sddmm import (sddmm_threshold_row,
+                                              sddmm_threshold_row_current)
 
     curr, nodes, num_nodes = sddmm_inputs(4, 16, 8, seed=97)
+    current = sddmm_threshold_row_current
     nodes_t = nodes.transpose(1, 2).contiguous().transpose(1, 2)
     one = torch.zeros((1, 1), device="cuda")
     cases = {
@@ -625,6 +728,16 @@ def sddmm_refusal_phase() -> None:
         "empty_graph": lambda: sddmm_threshold_row(
             one, one[:, :0, None].expand(1, 0, 1).contiguous(),
             torch.zeros(1, dtype=torch.int32, device="cuda"), 0.5),
+        "current_float64": lambda: current(nodes.double(), num_nodes, 0.5),
+        "current_int64_num_nodes": lambda: current(nodes, num_nodes.long(),
+                                                   0.5),
+        "current_cpu_num_nodes": lambda: current(nodes, num_nodes.cpu(), 0.5),
+        "current_cpu_nodes": lambda: current(nodes.cpu(), num_nodes, 0.5),
+        "current_widths_differ": lambda: current(
+            nodes, num_nodes, 0.5, cols=slice(0, 2), curr_cols=slice(0, 3)),
+        "current_no_columns": lambda: current(nodes, num_nodes, 0.5,
+                                              cols=slice(2, 2)),
+        "current_not_3d": lambda: current(nodes[0], num_nodes, 0.5),
     }
     refuse_all(cases, (sddmm_threshold_row,))
 
@@ -1194,6 +1307,12 @@ def selector_phase(card: str, serve_ticks: int = 100, B: int = 32,
                 kind, B, T_small, obs_scale=0.25)
         kinds = ("temporal", "cosine", "spatial")
         row["served_tick_in_turns"] = serve_timing(kinds, serve_ticks)
+        row["served_kernels_per_tick"] = {
+            k: row["served_tick_in_turns"][k]["profile"][
+                "device_kernels_per_call"] for k in kinds}
+        row["served_device_us_per_tick"] = {
+            k: row["served_tick_in_turns"][k]["profile"][
+                "device_us_per_call"] for k in kinds}
         row["scan_timesteps_per_s_in_turns"] = scan_timing(kinds, B, T)
     emit("selectors", **row)
 
@@ -1787,6 +1906,8 @@ def main() -> int:
              for i, case in enumerate(SPMM_CASES)]
     rows += [slots_case(*case[:6], seed=i, main_path=case[6])
              for i, case in enumerate(SLOTS_CASES)]
+    rows += [sddmm_current_case(*case[:8], seed=i, main_path=case[8])
+             for i, case in enumerate(SDDMM_CURRENT_CASES)]
     rows += [sddmm_case(*case[:6], seed=i, main_path=case[6])
              for i, case in enumerate(SDDMM_CASES)]
     rows += [variant_case(*case[:7], seed=i, main_path=case[7])
@@ -1795,6 +1916,7 @@ def main() -> int:
              for i, case in enumerate(WIN_CASES)]
     rows += [gather_case(*case[:2], seed=i, main_path=case[2])
              for i, case in enumerate(GATHER_CASES)]
+    launch_floor()
     refusal_phase()
     sparse_refusal_phase()
     sddmm_refusal_phase()

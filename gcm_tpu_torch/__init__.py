@@ -32,7 +32,8 @@ from gcm_tpu_torch.nn.sparse_conv import GCNConv, GraphConv, SparseGNN
 from gcm_tpu_torch.ops.coalesce import coalesce_edges
 from gcm_tpu_torch.ops.cuda.dense_gconv import fused_dense_graph_conv
 from gcm_tpu_torch.ops.cuda.fused_gnn import fused_dense_gnn
-from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
+from gcm_tpu_torch.ops.cuda.sddmm import (sddmm_threshold_row,
+                                          sddmm_threshold_row_current)
 from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
 from gcm_tpu_torch.ops.cuda.spmm_slots import (bucket_sink_slots,
                                                check_slot_overflow, spmm_slots)
@@ -53,8 +54,8 @@ __all__ = [
     "dense_fused_supported", "dense_initial_state", "dense_to_sparse",
     "fused_dense_gnn", "fused_dense_graph_conv", "load_jax_params",
     "pack_hidden", "readme_dense_gcm", "readme_sparse_gcm", "reset_where",
-    "resolve_device", "sddmm_threshold_row", "sincos_table",
-    "sparse_initial_state", "sparse_state_from_numpy",
+    "resolve_device", "sddmm_threshold_row", "sddmm_threshold_row_current",
+    "sincos_table", "sparse_initial_state", "sparse_state_from_numpy",
     "sparse_state_to_numpy", "sparse_to_dense", "spmm_edge_list",
     "spmm_slots", "state_from_numpy", "state_to_numpy", "unpack_hidden",
 ]

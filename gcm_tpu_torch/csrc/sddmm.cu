@@ -9,6 +9,14 @@
 // q.n on its matrix unit; that form cancels badly near 0, and a plain loop
 // serves as well here.
 //
+// Both operands are read where they lie, through strides: node j of batch
+// element b at nodes + b*node_sb + j*node_sn, its features at unit stride,
+// and the current node at curr + b*curr_sb + clamp(num_nodes[b], 0, N-1) *
+// curr_sn. The explicit entry passes curr [B,F] with curr_sn = 0; the
+// selectors pass a column range of the node tensor itself, so that the
+// current node nodes[b, clamp(num_nodes[b])] and a pose slice need no
+// gather or copy of their own (the counterpart of JAX's one fusion).
+//
 // Numerics: every sum runs over f in order 0..F-1, one rounding per add and
 // per multiply (__fmul_rn/__fadd_rn/__fsub_rn: no FMA contraction), with
 // correctly rounded sqrt and division. The plain PyTorch version
@@ -19,63 +27,84 @@
 // What bounds it on an H100: each input is read once, 4*B*(N*F + F + 1)
 // bytes, and B*N bytes are written, against ~3-6*B*N*F flops: it is bound by
 // bytes (a few microseconds at the served shape at 3.35 TB/s), and in
-// practice by latency at the model's small shapes.
+// practice by the latency of a few dependent loads at the model's small
+// shapes.
 //
-// What the design does about it: one block of kRows threads owns kRows node
-// rows of one batch element, one thread per row. The block stages the rows
-// kChunk features at a time in shared memory with coalesced loads (rows
-// padded to kChunk + 1 floats against bank conflicts) beside the same
-// features of curr, and each thread runs its row's sums in registers. No
-// atomics: two launches give bitwise-equal masks.
+// What the design does about it: one thread owns one node row and keeps its
+// sums in registers; there is no shared staging and no barrier. num_nodes[b]
+// is loaded first, then the row's features and the current node's go
+// straight to registers kChunk at a time (float4 where both column ranges
+// and both strides sit on 16 bytes, else scalar), so the row loads overlap
+// the num_nodes -> current node chain. A block's rows all belong to one
+// batch element, so every lane of a warp loads the same current-node
+// address, which the load unit serves as one broadcast. The rows a block
+// takes (128, 64 or 32) are chosen so that B*N rows give every SM a block.
+// No atomics: two launches give bitwise-equal masks.
 
 #include <cuda_runtime.h>
 
+#include "sm_count.cuh"
+
 namespace {
 
-constexpr int kRows = 128;   // node rows per block, one thread each
-constexpr int kChunk = 32;   // features staged per round
+constexpr int kMaxRows = 128;  // node rows per block at most, one thread each
+constexpr int kMinRows = 32;
+constexpr int kChunk = 32;     // features held in registers per round
 
-template <bool kCosine>
-__global__ void __launch_bounds__(kRows)
-sddmm_threshold_row_kernel(const float* __restrict__ curr,
-                           const float* __restrict__ nodes,
+// v[0..kChunk) = p[0..cols) (zero past cols): float4 loads where kVec4 (p on
+// 16 bytes), scalar loads for the rest.
+template <bool kVec4>
+__device__ __forceinline__ void load_chunk(const float* __restrict__ p,
+                                           int cols, float (&v)[kChunk]) {
+#pragma unroll
+  for (int c = 0; c < kChunk; c += 4) {
+    if (kVec4 && c + 4 <= cols) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p + c));
+      v[c] = t.x;
+      v[c + 1] = t.y;
+      v[c + 2] = t.z;
+      v[c + 3] = t.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        v[c + u] = c + u < cols ? __ldg(p + c + u) : 0.0f;
+    }
+  }
+}
+
+template <bool kCosine, bool kVec4>
+__global__ void __launch_bounds__(kMaxRows)
+sddmm_threshold_row_kernel(const float* __restrict__ curr, long long curr_sb,
+                           long long curr_sn, const float* __restrict__ nodes,
+                           long long node_sb, long long node_sn,
                            const int* __restrict__ num_nodes, float threshold,
                            unsigned char* __restrict__ out, int N, int F) {
-  __shared__ float s_nodes[kRows][kChunk + 1];
-  __shared__ float s_q[kChunk];
-
   const int b = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x;
-  const int rows = min(kRows, N - row0);
-  const float* nodes_b = nodes + (size_t(b) * N + row0) * F;
-  const float* q_b = curr + size_t(b) * F;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nb = __ldg(num_nodes + b);  // first: the current node waits on it
+  if (j >= N) return;
+  const float* x = nodes + b * node_sb + j * node_sn;
+  const float* q = curr + b * curr_sb + min(max(nb, 0), N - 1) * curr_sn;
 
   float acc = 0.0f, qq = 0.0f, nn = 0.0f;
   for (int f0 = 0; f0 < F; f0 += kChunk) {
-    const int cols = min(kChunk, F - f0);
-    for (int i = tid; i < rows * cols; i += kRows) {
-      const int r = i / cols, c = i - r * cols;
-      s_nodes[r][c] = nodes_b[size_t(r) * F + f0 + c];
-    }
-    if (tid < cols) s_q[tid] = q_b[f0 + tid];
-    __syncthreads();
-    if (tid < rows) {
-      for (int c = 0; c < cols; ++c) {
-        const float q = s_q[c], n = s_nodes[tid][c];
+    float xv[kChunk], qv[kChunk];
+    load_chunk<kVec4>(x + f0, F - f0, xv);
+    load_chunk<kVec4>(q + f0, F - f0, qv);
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      if (f0 + c < F) {
         if (kCosine) {
-          acc = __fadd_rn(acc, __fmul_rn(q, n));
-          qq = __fadd_rn(qq, __fmul_rn(q, q));
-          nn = __fadd_rn(nn, __fmul_rn(n, n));
+          acc = __fadd_rn(acc, __fmul_rn(qv[c], xv[c]));
+          qq = __fadd_rn(qq, __fmul_rn(qv[c], qv[c]));
+          nn = __fadd_rn(nn, __fmul_rn(xv[c], xv[c]));
         } else {
-          const float d = __fsub_rn(q, n);
+          const float d = __fsub_rn(qv[c], xv[c]);
           acc = __fadd_rn(acc, __fmul_rn(d, d));
         }
       }
     }
-    __syncthreads();  // the staging arrays are rewritten by the next chunk
   }
-  if (tid >= rows) return;
 
   float score;
   if (kCosine) {
@@ -87,37 +116,64 @@ sddmm_threshold_row_kernel(const float* __restrict__ curr,
   } else {
     score = __fsqrt_rn(acc);
   }
-  const int j = row0 + tid;
-  out[size_t(b) * N + j] = (score < threshold && j < num_nodes[b]) ? 1 : 0;
+  out[size_t(b) * N + j] = (score < threshold && j < nb) ? 1 : 0;
 }
+
+template <bool kCosine, bool kVec4>
+void launch(dim3 grid, int rows, cudaStream_t s, const float* q, long long qsb,
+            long long qsn, const float* x, long long sb, long long sn,
+            const int* nn, float threshold, unsigned char* o, int N, int F) {
+  sddmm_threshold_row_kernel<kCosine, kVec4><<<grid, rows, 0, s>>>(
+      q, qsb, qsn, x, sb, sn, nn, threshold, o, N, F);
+}
+
+bool on16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// curr [B,F] f32, nodes [B,N,F] f32, num_nodes [B] int32, out [B,N] uint8,
-// all contiguous on `device`; cosine != 0 picks the cosine score. Returns a
-// cudaError_t code (0 on success).
-int gcm_sddmm_threshold_row_f32(const void* curr, const void* nodes,
+// Scores node j of batch element b, the F floats at nodes + b*node_sb +
+// j*node_sn, against the F floats at curr + b*curr_sb + clamp(num_nodes[b],
+// 0, N-1)*curr_sn (strides in floats, none negative); num_nodes [B] int32,
+// out [B,N] uint8 contiguous, all on `device`; cosine != 0 picks the cosine
+// score. Returns a cudaError_t code (0 on success).
+int gcm_sddmm_threshold_row_f32(const void* curr, long long curr_sb,
+                                long long curr_sn, const void* nodes,
+                                long long node_sb, long long node_sn,
                                 const void* num_nodes, float threshold,
                                 int cosine, void* out, int B, int N, int F,
                                 int device, void* stream) {
-  if (B < 1 || B > 65535 || N < 1 || N > (1 << 24) || F < 1 || F > (1 << 16))
+  if (B < 1 || B > 65535 || N < 1 || N > (1 << 24) || F < 1 || F > (1 << 16) ||
+      curr_sb < 0 || curr_sn < 0 || node_sb < 0 || node_sn < 0)
     return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((N + kRows - 1) / kRows, B);
+  // the most rows a block that still leaves no SM without a block
+  int rows = kMaxRows;
+  while (rows > kMinRows &&
+         static_cast<long long>(B) * ((N + rows - 1) / rows) < sm_count(device))
+    rows /= 2;
+  const dim3 grid((N + rows - 1) / rows, B);
   auto s = static_cast<cudaStream_t>(stream);
   auto q = static_cast<const float*>(curr);
   auto x = static_cast<const float*>(nodes);
   auto nn = static_cast<const int*>(num_nodes);
   auto o = static_cast<unsigned char*>(out);
-  if (cosine)
-    sddmm_threshold_row_kernel<true><<<grid, kRows, 0, s>>>(q, x, nn, threshold,
-                                                            o, N, F);
+  const bool vec4 = on16(q) && on16(x) && curr_sb % 4 == 0 &&
+                    curr_sn % 4 == 0 && node_sb % 4 == 0 && node_sn % 4 == 0;
+  if (cosine && vec4)
+    launch<true, true>(grid, rows, s, q, curr_sb, curr_sn, x, node_sb, node_sn,
+                       nn, threshold, o, N, F);
+  else if (cosine)
+    launch<true, false>(grid, rows, s, q, curr_sb, curr_sn, x, node_sb,
+                        node_sn, nn, threshold, o, N, F);
+  else if (vec4)
+    launch<false, true>(grid, rows, s, q, curr_sb, curr_sn, x, node_sb,
+                        node_sn, nn, threshold, o, N, F);
   else
-    sddmm_threshold_row_kernel<false><<<grid, kRows, 0, s>>>(q, x, nn,
-                                                             threshold, o, N, F);
+    launch<false, false>(grid, rows, s, q, curr_sb, curr_sn, x, node_sb,
+                         node_sn, nn, threshold, o, N, F);
   return int(cudaGetLastError());
 }
 

@@ -4,9 +4,11 @@ every memory node, threshold, and wire an edge from each past node whose
 score is below the threshold.
 
 CosineEdge and SpatialEdge take their thresholded row from the
-hand-written kernel `sddmm_threshold_row` (ops/cuda/sddmm.py), which
-computes exactly their score: on CUDA tensors it launches, on CPU tensors
-its plain version runs, and both give bitwise-equal rows. EuclideanEdge
+hand-written kernel's current-node entry `sddmm_threshold_row_current`
+(ops/cuda/sddmm.py), which computes exactly their score and reads the
+current node and the pose columns where they lie in `nodes`: on CUDA
+tensors it launches, on CPU tensors its plain version runs, and both give
+bitwise-equal rows. EuclideanEdge
 stays in plain PyTorch: its score is the reference's batch-mean broadcast
 (ops/distance.py::euclidean_score), not the per-batch distance the kernel
 computes.
@@ -21,15 +23,9 @@ import torch
 from torch import nn
 
 from gcm_tpu_torch.device import resolve_device
-from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
+from gcm_tpu_torch.ops.cuda.sddmm import (current_node,
+                                          sddmm_threshold_row_current)
 from gcm_tpu_torch.ops.distance import euclidean_score
-
-
-def _current(nodes, num_nodes):
-    """nodes[b, clip(num_nodes[b], 0, N - 1)], [B, F]."""
-    B, N = nodes.shape[0], nodes.shape[1]
-    idx = torch.clamp(num_nodes, 0, N - 1).long()
-    return nodes[torch.arange(B, device=nodes.device), idx]
 
 
 class Distance(nn.Module):
@@ -95,14 +91,14 @@ class EuclideanEdge(Distance):
     def edge_mask(self, nodes, num_nodes):
         past = torch.arange(nodes.shape[1], device=nodes.device)[None, :] \
             < num_nodes[:, None]
-        return (euclidean_score(_current(nodes, num_nodes), nodes)
+        return (euclidean_score(current_node(nodes, num_nodes), nodes)
                 < self.max_distance) & past
 
 
 class CosineEdge(Distance):
     """Cosine similarity (ops/distance.py::cosine_score) compared against
     the threshold; the row comes from the sddmm_threshold_row kernel in
-    cosine mode."""
+    cosine mode, which reads the current node in place."""
 
     def __init__(self, max_distance: float, learned: bool = False,
                  window: int | None = None, *, device=None):
@@ -110,15 +106,15 @@ class CosineEdge(Distance):
                          device=device)
 
     def edge_mask(self, nodes, num_nodes):
-        return sddmm_threshold_row(_current(nodes, num_nodes), nodes,
-                                   num_nodes, self.max_distance, "cosine")
+        return sddmm_threshold_row_current(nodes, num_nodes,
+                                           self.max_distance, "cosine")
 
 
 class SpatialEdge(Distance):
     """Euclidean distance between the pose slices curr[a_pose_slice] and
     node[b_pose_slice] (ops/distance.py::spatial_score); the row comes from
-    the sddmm_threshold_row kernel in euclidean mode, on contiguous copies
-    of the slices."""
+    the sddmm_threshold_row kernel in euclidean mode, which reads both
+    slices where they lie in the nodes."""
 
     def __init__(self, max_distance: float, a_pose_slice: slice,
                  b_pose_slice: slice | None = None, learned: bool = False,
@@ -129,7 +125,6 @@ class SpatialEdge(Distance):
         self.b_pose_slice = b_pose_slice or a_pose_slice
 
     def edge_mask(self, nodes, num_nodes):
-        curr = _current(nodes, num_nodes)[:, self.a_pose_slice].contiguous()
-        pose = nodes[:, :, self.b_pose_slice].contiguous()
-        return sddmm_threshold_row(curr, pose, num_nodes, self.max_distance,
-                                   "euclidean")
+        return sddmm_threshold_row_current(
+            nodes, num_nodes, self.max_distance, "euclidean",
+            cols=self.b_pose_slice, curr_cols=self.a_pose_slice)

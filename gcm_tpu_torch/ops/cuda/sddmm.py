@@ -7,11 +7,15 @@ curr [B,F] float32, nodes [B,N,F] float32, num_nodes [B] int32 -> bool
 adjacency row num_nodes[b]. mode 'euclidean' scores sqrt(sum_f (q_f -
 n_f)^2), 'cosine' (q . n) / (max(|q|, 1e-8) * max(|n|, 1e-8)).
 
-`sddmm_threshold_row` launches the hand-written CUDA kernel
-(csrc/sddmm.cu) for CUDA tensors, or raises, and takes the plain PyTorch
-version, `sddmm_threshold_row_plain`, only for CPU tensors. Both sum over
-features in order, one rounding per operation, so the card's masks are
-bitwise equal to the CPU's. Forward only.
+Two entries launch the one hand-written CUDA kernel (csrc/sddmm.cu):
+`sddmm_threshold_row` takes curr as a tensor of its own, and
+`sddmm_threshold_row_current` takes the selectors' current node,
+curr[b] = nodes[b, clip(num_nodes[b], 0, N - 1), curr_cols], and scores
+nodes[:, :, cols], both read in place by the kernel. For CUDA tensors each
+launches the kernel (or raises); CPU tensors take the plain PyTorch
+versions. Both sum over features in order, one rounding per operation, so
+the card's masks are bitwise equal to the CPU's. Both entries count their
+launches on `sddmm_threshold_row.launches`. Forward only.
 """
 
 from __future__ import annotations
@@ -34,6 +38,19 @@ MAX_B, MAX_N, MAX_F = 65535, 1 << 24, 1 << 16
 def _threshold(threshold) -> float:
     """The threshold as the float32 value both versions compare against."""
     return float(np.float32(threshold))
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
+
+
+def current_node(nodes, num_nodes):
+    """nodes[b, clip(num_nodes[b], 0, N - 1)], [B, F]: the node a distance
+    selector scores the others against."""
+    B, N = nodes.shape[0], nodes.shape[1]
+    idx = torch.clamp(num_nodes, 0, N - 1).long()
+    return nodes[torch.arange(B, device=nodes.device), idx]
 
 
 def sddmm_threshold_row_plain(curr, nodes, num_nodes, threshold,
@@ -61,35 +78,61 @@ def sddmm_threshold_row_plain(curr, nodes, num_nodes, threshold,
     return (score < _threshold(threshold)) & past
 
 
+def _slices(cols, curr_cols) -> tuple[slice, slice]:
+    cols = slice(None) if cols is None else cols
+    return cols, cols if curr_cols is None else curr_cols
+
+
+def sddmm_threshold_row_current_plain(nodes, num_nodes, threshold,
+                                      mode: str = "euclidean", cols=None,
+                                      curr_cols=None):
+    """The current node gathered and both column ranges sliced, then the
+    plain loop: the explicit path's arithmetic."""
+    cols, curr_cols = _slices(cols, curr_cols)
+    return sddmm_threshold_row_plain(
+        current_node(nodes, num_nodes)[:, curr_cols], nodes[:, :, cols],
+        num_nodes, threshold, mode)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("sddmm")
-    vp, ip = ctypes.c_void_p, ctypes.c_int
-    lib.gcm_sddmm_threshold_row_f32.argtypes = [vp, vp, vp, ctypes.c_float,
-                                                ip, vp, ip, ip, ip, ip, vp]
+    vp, ip, lp = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.gcm_sddmm_threshold_row_f32.argtypes = [
+        vp, lp, lp, vp, lp, lp, vp, ctypes.c_float, ip, vp, ip, ip, ip, ip,
+        vp]
     lib.gcm_sddmm_threshold_row_f32.restype = ip
     return lib
+
+
+def _run(dev, curr, curr_sb, curr_sn, nodes, node_sb, node_sn, num_nodes, B,
+         N, F, threshold, mode):
+    """Launches the kernel on `dev` with column pointers and strides (in
+    floats) that the caller has checked."""
+    if not (1 <= B <= MAX_B and 1 <= N <= MAX_N and 1 <= F <= MAX_F):
+        raise ValueError(f"the kernel takes 1 <= B <= {MAX_B}, 1 <= N <= "
+                         f"{MAX_N} and 1 <= F <= {MAX_F}; got B={B} N={N} "
+                         f"F={F}")
+    check_cuda("num_nodes", num_nodes, (B,), dev, torch.int32)
+    out = torch.empty((B, N), device=dev, dtype=torch.uint8)
+    rc = _lib().gcm_sddmm_threshold_row_f32(
+        curr, curr_sb, curr_sn, nodes, node_sb, node_sn, ptr(num_nodes),
+        _threshold(threshold), int(mode == "cosine"), ptr(out), B, N, F,
+        dev.index, stream_of(dev))
+    check_rc("sddmm_threshold_row", rc)
+    sddmm_threshold_row.launches += 1
+    return out.view(torch.bool)
 
 
 def _launch(curr, nodes, num_nodes, threshold, mode):
     if nodes.dim() != 3:
         raise ValueError(f"nodes must be [B, N, F], got {tuple(nodes.shape)}")
     B, N, F = nodes.shape
-    if not (1 <= B <= MAX_B and 1 <= N <= MAX_N and 1 <= F <= MAX_F):
-        raise ValueError(f"the kernel takes 1 <= B <= {MAX_B}, 1 <= N <= "
-                         f"{MAX_N} and 1 <= F <= {MAX_F}; got B={B} N={N} "
-                         f"F={F}")
     dev = nodes.device
     check_cuda("curr", curr, (B, F), dev)
     check_cuda("nodes", nodes, (B, N, F), dev)
-    check_cuda("num_nodes", num_nodes, (B,), dev, torch.int32)
-    out = torch.empty((B, N), device=dev, dtype=torch.uint8)
-    rc = _lib().gcm_sddmm_threshold_row_f32(
-        ptr(curr), ptr(nodes), ptr(num_nodes), _threshold(threshold),
-        int(mode == "cosine"), ptr(out), B, N, F, dev.index, stream_of(dev))
-    check_rc("sddmm_threshold_row", rc)
-    sddmm_threshold_row.launches += 1
-    return out.view(torch.bool)
+    return _run(dev, ptr(curr), F, 0, ptr(nodes), N * F, F, num_nodes, B, N,
+                F, threshold, mode)
 
 
 def sddmm_threshold_row(curr, nodes, num_nodes, threshold,
@@ -97,8 +140,7 @@ def sddmm_threshold_row(curr, nodes, num_nodes, threshold,
     """curr [B,F], nodes [B,N,F], num_nodes [B] int32, threshold a scalar ->
     bool [B,N]. CUDA tensors launch the kernel (or raise); CPU tensors take
     the plain version."""
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
+    _check_mode(mode)
     check_forward_only(curr, nodes)
     if all(t.device.type == "cpu" for t in (curr, nodes, num_nodes)):
         return sddmm_threshold_row_plain(curr, nodes, num_nodes, threshold,
@@ -107,3 +149,56 @@ def sddmm_threshold_row(curr, nodes, num_nodes, threshold,
 
 
 sddmm_threshold_row.launches = 0  # kernel launches, for callers to read and reset
+
+
+def _column_range(sl: slice, F: int) -> tuple[int, int] | None:
+    """(start, width) of a slice of F columns, None for a step other than 1."""
+    start, stop, step = sl.indices(F)
+    return (start, max(0, stop - start)) if step == 1 else None
+
+
+def _launch_current(nodes, num_nodes, threshold, mode, cols, curr_cols):
+    if nodes.dim() != 3:
+        raise ValueError(f"nodes must be [B, N, F], got {tuple(nodes.shape)}")
+    if nodes.device.type != "cuda":
+        raise ValueError(f"nodes: the kernel takes CUDA tensors, got "
+                         f"{nodes.device}")
+    if nodes.dtype != torch.float32:
+        raise ValueError(f"nodes: the kernel takes torch.float32, got "
+                         f"{nodes.dtype}")
+    B, N, F = nodes.shape
+    a, c = _column_range(cols, F), _column_range(curr_cols, F)
+    if a is None or c is None or nodes.stride(-1) != 1:
+        # the two column ranges, side by side in one contiguous copy
+        scored, current = nodes[:, :, cols], nodes[:, :, curr_cols]
+        nodes = torch.cat([scored, current], dim=-1)
+        a = (0, scored.shape[-1])
+        c = (scored.shape[-1], current.shape[-1])
+    if a[1] != c[1]:
+        raise ValueError(f"the scored columns {cols} and the current node's "
+                         f"{curr_cols} differ in width: {a[1]} and {c[1]}")
+    base, item = nodes.data_ptr(), nodes.element_size()
+    sb, sn = nodes.stride(0), nodes.stride(1)
+    return _run(nodes.device, ctypes.c_void_p(base + item * c[0]), sb, sn,
+                ctypes.c_void_p(base + item * a[0]), sb, sn, num_nodes, B, N,
+                a[1], threshold, mode)
+
+
+def sddmm_threshold_row_current(nodes, num_nodes, threshold,
+                                mode: str = "euclidean", cols=None,
+                                curr_cols=None):
+    """nodes [B,N,F], num_nodes [B] int32, threshold a scalar, cols and
+    curr_cols slices of the features (None: all; curr_cols None: cols) ->
+    bool [B,N], the row of curr[b] = nodes[b, clip(num_nodes[b], 0, N - 1),
+    curr_cols] against nodes[:, :, cols]. The kernel reads both through
+    nodes' batch and row strides; a slice with a step other than 1, or a
+    last dimension that is not contiguous, is first copied. CUDA tensors
+    launch the kernel (or raise); CPU tensors take the plain version."""
+    _check_mode(mode)
+    check_forward_only(nodes)
+    cols, curr_cols = _slices(cols, curr_cols)
+    if nodes.device.type == "cpu" and num_nodes.device.type == "cpu":
+        return sddmm_threshold_row_current_plain(nodes, num_nodes, threshold,
+                                                 mode, cols, curr_cols)
+    return _launch_current(nodes, num_nodes, threshold, mode, cols,
+                           curr_cols)

@@ -12,7 +12,8 @@ structural degree bound (TemporalEdge: k = len(hops)) never overflows.
 `spmm_slots(x, srcs, ws, num_nodes, k)` -> [B,N,F] launches the
 hand-written CUDA kernel (csrc/spmm_slots.cu) for CUDA tensors, or raises,
 and takes the plain PyTorch version, `spmm_slots_plain`, only for CPU
-tensors. Forward only. The layout helpers are plain torch, as they were XLA
+tensors. Both do the same multiplies and adds in the same order, one
+rounding each, so their results are bitwise equal. Forward only. The layout helpers are plain torch, as they were XLA
 in the JAX package.
 """
 
@@ -33,8 +34,9 @@ W = 128  # node window
 
 def spmm_slots_plain(x, srcs, ws, k: int):
     """Sums in the kernel's order: over source windows ascending, the k
-    slots of each summed first. A slot whose local source is outside
-    0..W-1 adds nothing."""
+    slots of each summed first, acc + w * x one rounding per operation. A
+    slot whose local source is outside 0..W-1 adds weight 0 times the
+    window's row 0: nothing, for finite x."""
     B, N, F = x.shape
     nw = N // W
     xw = x.reshape(B, nw, W, F)

@@ -52,8 +52,9 @@ from gcm_tpu_torch import (CosineEdge, DenseEdge, DenseGCM, EdgeChain,
                            state_from_numpy)
 from gcm_tpu_torch.models.dense_gcm import _dense_selector_row_col, _RowColAcc
 from gcm_tpu_torch.ops import distance as tdist
-from gcm_tpu_torch.ops.cuda.sddmm import (sddmm_threshold_row,
-                                          sddmm_threshold_row_plain)
+from gcm_tpu_torch.ops.cuda.sddmm import (
+    sddmm_threshold_row, sddmm_threshold_row_current,
+    sddmm_threshold_row_current_plain, sddmm_threshold_row_plain)
 from gcm_tpu_torch.utils import ste as tste
 
 torch.set_num_threads(1)
@@ -135,6 +136,56 @@ def test_sddmm_plain_matches_pallas_and_jax_scores():
         assert sddmm_threshold_row.launches == before
     with pytest.raises(ValueError, match="unknown mode"):
         sddmm_threshold_row(t(curr), t(nodes), t(num_nodes), 0.5, "manhattan")
+
+
+def test_sddmm_current_entry_matches_explicit_path_and_pallas():
+    """The current-node entry's plain version (the function its kernel
+    reads in place) equals the explicit path on the gathered node and the
+    sliced columns bitwise, and agrees with the Pallas kernel: num_nodes 0,
+    mid, N - 1 and past N (clamped); the whole row, a pose slice, different
+    slices for the current node and the others at column offsets, F = 5 at
+    offset 3, and slices with a step of 2 (which the kernel's wrapper
+    copies)."""
+    rng = np.random.default_rng(1)
+    Bc, Nc = 4, 13
+    num_nodes = np.array([0, Nc // 2, Nc - 1, Nc + 7], np.int32)
+    for mode, F, cols, curr_cols, thr in (
+            ("cosine", 8, None, None, 0.2),
+            ("euclidean", 8, slice(0, 2), None, 1.0),
+            ("euclidean", 8, slice(4, 6), slice(1, 3), 1.0),
+            ("cosine", 11, slice(3, 8), None, -0.1),
+            ("euclidean", 11, slice(3, 8), slice(6, 11), 3.0),
+            ("euclidean", 9, slice(0, 8, 2), slice(1, 9, 2), 2.5)):
+        label = f"{mode} F={F} cols={cols} curr_cols={curr_cols}"
+        nodes = rng.standard_normal((Bc, Nc, F)).astype(np.float32)
+        scored_cols = cols or slice(None)
+        curr = np.ascontiguousarray(nodes[np.arange(Bc), np.clip(
+            num_nodes, 0, Nc - 1)][:, curr_cols or scored_cols])
+        scored = np.ascontiguousarray(nodes[:, :, scored_cols])
+        got = sddmm_threshold_row_current_plain(t(nodes), t(num_nodes), thr,
+                                                mode, cols, curr_cols)
+        assert got.any() and not got.all(), label
+        assert not got[0].any() and got[3].any(), label
+        assert torch.equal(got, sddmm_threshold_row_plain(
+            t(curr), t(scored), t(num_nodes), thr, mode)), label
+        want = np.asarray(pallas_sddmm(jnp.asarray(curr), jnp.asarray(scored),
+                                       jnp.asarray(num_nodes), thr,
+                                       mode=mode))
+        assert_masks_agree(got.numpy(), want, curr, scored, thr, mode,
+                           f"pallas {label}")
+        # the wrapper takes the plain version for CPU tensors, unlaunched
+        before = sddmm_threshold_row.launches
+        assert torch.equal(sddmm_threshold_row_current(
+            t(nodes), t(num_nodes), thr, mode, cols, curr_cols), got), label
+        assert sddmm_threshold_row.launches == before
+    with pytest.raises(ValueError, match="unknown mode"):
+        sddmm_threshold_row_current(t(nodes), t(num_nodes), 0.5, "manhattan")
+    # a tensor that is not on the CPU launches the kernel or raises
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sddmm_threshold_row_current(
+            torch.empty((Bc, Nc, 8), device="meta"),
+            torch.empty(Bc, dtype=torch.int32, device="meta"), 0.5)
+    assert sddmm_threshold_row.launches == before
 
 
 # -- ops/distance.py, utils/ste.py, LayerNorm, positional encoders -------------
