@@ -47,7 +47,18 @@ Phases, one JSON line each:
    N=512, E=8192, F=128, every row checked against the plain scatter (1e-3;
    0.5 for bf16) and timed in edges/s, through spmm_edge_list,
    spmm_onehot_dtype, spmm_win, spmm_pairs, spmm_seg and spmm_prefetch,
-   with no row of the JAX script left out.
+   with no row of the JAX script left out;
+9. gradients: spmm_pairs and spmm_seg forward and backward at the sweep's
+   point against autograd through their plain versions (dx and dw within
+   1e-4), their dw through edge_weight_grad, exact launch counts;
+10. train: both README cores trained through make_dense_supervised_step
+   (B=32, T=160 on a 128-node graph, so the ring wraps: fused_dense_gnn
+   forward and fused_dense_gnn_bwd backward each step) and
+   make_sparse_supervised_step (one window of [32, 128, 8], default and
+   aggregation="slots": spmm_edge_list or spmm_slots forward,
+   spmm_edge_list for dx backward), three Adam steps each against a CPU
+   copy (loss and every gradient within 1e-4), exact launches per forward
+   + backward, a finite loss that falls, µs per step and a profiled step.
 Phase 3 also holds spmm_edge_list and spmm_slots (bitwise: kernel and
 plain version add in the same order; slots also with sources outside their
 windows) against their plain versions beside one torch.sparse.mm call on a
@@ -70,10 +81,18 @@ torch.sparse.mm; the gathers take_rows, take_lanes and take_rows_loop bit
 for bit against theirs (NaN where NaN) at the probe's shapes, at the
 sweep's message gather ([32768, 128] by 524,288 indices; lanes [32768,
 512] by [32768, 128]), with indices past either end and, for
-take_rows_loop, at 65,536 rows, beside index_select / torch.gather; it checks every kernel's refusals, and runs
-spmm_pairs and spmm_seg forward and backward against autograd through
-their plain versions (dx and dw within 1e-4, exact launch counts).
-Phases 4-8 each run with every launch count set to 0 just before and
+take_rows_loop, at 65,536 rows, beside index_select / torch.gather; it
+checks every kernel's refusals. It holds the stack backward fused_dense_gnn_bwd (csrc/dense_gnn_bwd.cu) against
+its plain version, JAX's formulas (dx, dadj where asked for, every
+parameter's gradient, each within 1e-5 of its largest magnitude, at least
+1), at the dense scan's training shape, the served
+batch, a learned adjacency, each activation, one layer, and the adjacency
+streamed from device memory (N = 512, 1,024), beside autograd's backward
+through the bmm + addmm chain; and edge_weight_grad (csrc/edge_grad.cu)
+bitwise against its plain version at the sweep's point, the sparse path's
+window, indices of N or more, F = 260 and no valid lane, beside autograd's
+backward through torch.sparse.mm to its values.
+Phases 4-10 each run with every launch count set to 0 just before and
 read just after; each must launch the kernels of its path.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero and prints no result.
@@ -242,27 +261,45 @@ def bitwise_equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
+def flat(out):
+    """A function's output as one tensor: a tuple of tensors (a backward's
+    gradients) flattened and joined in order."""
+    if isinstance(out, (tuple, list)):
+        return torch.cat([t.float().reshape(-1) for t in out])
+    return out
+
+
 def kernel_row(name, shape, main_path, kernel, plain, library, bound,
-               tol=TOL_KERNEL, nan_fills=False):
+               tol=TOL_KERNEL, nan_fills=False, err_scale=None, library_as=None):
     """Checks a kernel against its plain version (within tol, two launches
     bitwise equal) and times the kernel, the plain version and the library
-    call; emits and returns the row. Boolean outputs compare as 0/1. The
+    call; emits and returns the row. Boolean outputs compare as 0/1; a
+    tuple of outputs (gradients) compares as one flattened tensor. The
     kernel's output must be finite, unless nan_fills (the gathers' fills
     past the end): then it must be NaN exactly where the plain version's
     is. A "hot row" case's plain version is checked but not timed (its one
-    row makes it thousands of launches a call; plain_ms is None)."""
-    got = kernel()
+    row makes it thousands of launches a call; plain_ms is None). With
+    err_scale (a tensor of want's flattened shape), the check holds
+    |got - want| / err_scale within tol. library_as maps the library call's
+    output onto the kernel's, for its error (outside its timing)."""
+    got = flat(kernel())
     torch.cuda.synchronize()
-    want = plain()
+    want = flat(plain())
     err = max_abs_err(got, want, nan_fills)
-    again = kernel()
+    scaled = (err if err_scale is None
+              else float(((got - want).abs() / err_scale).max()))
+    again = flat(kernel())
     torch.cuda.synchronize()
-    lib_err = max_abs_err(library(), want, nan_fills)
+    lib_out = flat(library())
+    if library_as is not None:
+        lib_out = library_as(lib_out)
+    lib_err = max_abs_err(lib_out, want, nan_fills)
     ms, call_ms = time_ms(kernel)
     plain_ms, plain_call_ms = (time_ms(plain) if shape.get("case") != "hot row"
                                else (None, None))
     library_ms, library_call_ms = time_ms(library)
     row = dict(kernel=name, **shape, main_path=main_path, max_abs_err=err,
+               **({} if err_scale is None else {"max_scaled_err": scaled}),
                bitwise_repeatable=bitwise_equal(got, again),
                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                x_bound=ms / bound[0],
@@ -276,7 +313,8 @@ def kernel_row(name, shape, main_path, kernel, plain, library, bound,
               f"{name} {shape}: NaN off the plain version's places")
     else:
         check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite")
-    check(err <= tol, f"{name} {shape}: max abs err {err} > {tol}")
+    kind = "abs" if err_scale is None else "scaled"
+    check(scaled <= tol, f"{name} {shape}: max {kind} err {scaled} > {tol}")
     check(row["bitwise_repeatable"], f"{name} {shape}: two launches differ")
     return row
 
@@ -352,6 +390,163 @@ KERNEL_CASES = [
     ("fused_dense_gnn", 16, 64, (7, 96, 9), ("tanh", None), "0/1", False),
     ("fused_dense_gnn", 8, 512, (64, 64, 64), ("relu", "tanh"), "0/1",
      False),
+]
+
+
+def dense_bwd_bound_ms(B, N, widths, need_adj):
+    """The stack backward's least time: the forward replay's and the
+    backward's products on the tensor cores, three TF32 products for each
+    f32-accurate one as `dense_bound_ms` counts the forward's (whatever
+    route the kernel takes), or its bytes (x, adj, the parameters and g
+    read once; dx, dadj if asked for and the parameters' gradients written
+    once)."""
+    flops = 0
+    for fi, fo in zip(widths[:-1], widths[1:]):
+        flops += 2 * B * (N * N * fi + 2 * N * fi * fo)   # replay
+        flops += 2 * B * N * fi * fo * 3                  # dagg, dW_rel, dW_root
+        flops += 2 * B * (N * N * fi + N * fo * fi)       # dh
+        if need_adj:
+            flops += 2 * B * N * N * fi                   # dadj
+    params = sum(2 * fi * fo + fo for fi, fo in zip(widths[:-1], widths[1:]))
+    nbytes = 4 * (2 * B * N * widths[0] + B * N * N * (1 + need_adj)
+                  + 2 * params + B * N * widths[-1])
+    return bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
+
+
+def dense_bwd_case(case, B, N, widths, acts, need_adj, inputs, seed,
+                   main_path):
+    """The stack backward (csrc/dense_gnn_bwd.cu) against its plain
+    version, JAX's formulas, for a cotangent g uniform in (-1, 1): dx, dadj
+    where asked for, and every parameter's gradient, each within TOL_KERNEL
+    of its largest magnitude (at least 1): a parameter's gradient sums
+    B x N products, up to a few hundred at these shapes, where float32
+    rounding in another order alone differs by more than 1e-5 (autograd
+    through cuBLAS differs from the plain version as much). Library:
+    autograd's backward through the bmm + addmm forward (its graph built
+    once)."""
+    from gcm_tpu_torch.ops.cuda.fused_gnn import (
+        NEED_ADJ, NEED_PARAMS, NEED_X, fused_dense_gnn_bwd,
+        fused_dense_gnn_bwd_plain)
+
+    x, adj, *params = make_case(B, N, widths, seed, inputs)
+    g = (torch.rand((B, N, widths[-1]), generator=torch.Generator()
+                    .manual_seed(seed + 1000)) * 2 - 1).cuda()
+    need = NEED_X | NEED_PARAMS | (NEED_ADJ if need_adj else 0)
+
+    def grads(fn):
+        dx, dadj, dparams = fn(x, adj, params, acts, g, need)
+        return (dx,) + ((dadj,) if need_adj else ()) + tuple(dparams)
+
+    L = len(acts)
+    xl = x.clone().requires_grad_()
+    adjl = adj.clone().requires_grad_(need_adj)
+    wcats = [torch.cat([params[3 * i], params[3 * i + 2]], 0)
+             .requires_grad_() for i in range(L)]
+    biases = [params[3 * i + 1].clone().requires_grad_() for i in range(L)]
+    out = library_gnn(xl, adjl, wcats, biases, acts)
+    leaves = [xl] + ([adjl] if need_adj else []) + wcats + biases
+
+    def library():
+        d = torch.autograd.grad(out, leaves, g, retain_graph=True)
+        dw, db = d[-2 * L:-L], d[-L:]
+        per_layer = [(dw[i][:widths[i]], db[i], dw[i][widths[i]:])
+                     for i in range(L)]
+        return d[:len(leaves) - 2 * L] + tuple(t for p in per_layer
+                                               for t in p)
+
+    err_scale = torch.cat([
+        torch.full((t.numel(),), max(1.0, float(t.abs().max())),
+                   device=t.device) for t in grads(fused_dense_gnn_bwd_plain)])
+    return kernel_row(
+        "fused_dense_gnn_bwd",
+        dict(case=case, B=B, N=N, widths=list(widths), acts=list(acts),
+             dadj=need_adj, inputs=inputs),
+        main_path, kernel=lambda: grads(fused_dense_gnn_bwd),
+        plain=lambda: grads(fused_dense_gnn_bwd_plain), library=library,
+        bound=dense_bwd_bound_ms(B, N, widths, need_adj),
+        err_scale=err_scale)
+
+
+DENSE_BWD_CASES = [
+    # (case, B, N, widths, acts, dadj, inputs (make_case), main_path): the
+    # dense scan's training step (its adjacency carries no gradient), the
+    # served batch, a learned adjacency (dadj), the other activations and
+    # one layer (the one-layer conv's backward), a weighted adjacency, and
+    # the adjacency streamed from device memory (its rows and columns of a
+    # block over 160 KB: N = 512 and 1,024), with odd widths
+    ("scan", 32, 128, (32, 32, 32), ("tanh", "tanh"), False, "0/1", True),
+    ("served batch", 256, 128, (32, 32, 32), ("tanh", "tanh"), False, "0/1",
+     False),
+    ("learned adjacency", 32, 128, (32, 32, 32), ("tanh", "tanh"), True,
+     "weighted", False),
+    ("relu, none", 16, 64, (8, 32, 16), ("relu", None), True, "0/1", False),
+    ("one layer", 32, 128, (32, 32), (None,), True, "0/1", False),
+    ("streamed", 8, 512, (64, 64, 64), ("relu", "tanh"), True, "weighted",
+     False),
+    ("streamed, odd widths", 2, 1024, (13, 30, 17, 7),
+     ("tanh", "relu", None), False, "x*8", False),
+]
+
+
+def edge_grad_case(case, B, N, F, E, seed, main_path):
+    """The edge weight-gradient (csrc/edge_grad.cu) bitwise against its
+    plain version, which adds in the kernel's order. Library: the same
+    function as one torch.sparse.sampled_addmm (g x^T sampled at the
+    block-diagonal CSR of the in-range lanes; autograd's backward through
+    torch.sparse.mm to its values waits for the host, so the harness sees
+    no device time of it), its values mapped back onto the lanes for the
+    error only."""
+    from gcm_tpu_torch.benchmarks.spmm_variants import block_diagonal_coo
+    from gcm_tpu_torch.ops.cuda.edge_grad import (edge_weight_grad,
+                                                  edge_weight_grad_plain)
+
+    x, edges, w = (torch.from_numpy(a).cuda()
+                   for a in spmm_inputs(case, B, N, F, E, seed))
+    g = torch.from_numpy(np.random.default_rng(seed + 1000).standard_normal(
+        (B, N, F)).astype(np.float32)).cuda()
+    coo = block_diagonal_coo(edges, w, N)
+    csr = coo.to_sparse_csr()
+    g2, x2t = g.reshape(B * N, F), x.reshape(B * N, F).T.contiguous()
+    valid = (edges[:, 0] >= 0) & (edges[:, 1] >= 0)
+    off = (torch.arange(B, device=edges.device) * N)[:, None]
+    # each in-range lane's place among the COO's sorted (row, column) keys
+    inside = valid & (edges[:, 0] < N) & (edges[:, 1] < N)
+    key = ((edges[:, 0].long() + off) * (B * N) + edges[:, 1].long() + off)
+    keys = coo.indices()[0] * (B * N) + coo.indices()[1]
+    pos = torch.searchsorted(keys, key.clamp(min=0)).clamp(
+        max=max(keys.numel() - 1, 0))
+
+    def library_as(vals):
+        if not vals.numel():
+            return torch.zeros_like(key, dtype=torch.float32)
+        return torch.where(inside, vals[pos], 0.0)
+
+    def rows(i):  # the distinct rows of g or x the valid lanes read
+        r = torch.clamp(edges[:, i].long(), max=N - 1) + off
+        return int(torch.unique(r[valid]).numel())
+
+    n_valid = int(valid.sum())
+    return kernel_row(
+        "edge_weight_grad", dict(case=case, B=B, N=N, F=F, E=E), main_path,
+        kernel=lambda: edge_weight_grad(g, x, edges),
+        plain=lambda: edge_weight_grad_plain(g, x, edges),
+        library=lambda: torch.sparse.sampled_addmm(csr, g2, x2t, beta=0.0)
+        .values(), library_as=library_as,
+        bound=bound_ms(4 * F * (rows(0) + rows(1)) + 8 * B * E + 4 * B * E,
+                       2 * n_valid * F),
+        tol=0.0)  # bitwise: both add in the same order
+
+
+EDGE_GRAD_CASES = [
+    # (case, B, N, F, E, main_path): the SpMM sweep's point, where the
+    # gradient phase's pair and segment backwards launch it; the sparse
+    # path's window; sentinels and indices of N or more (clamped rows);
+    # many columns; no valid lane
+    ("wide", 64, 512, 128, 8192, True),
+    ("main path", 32, 128, 32, 512, False),
+    ("odd", 2, 300, 13, 777, False),
+    ("many columns", 4, 256, 260, 2048, False),
+    ("empty", 2, 128, 32, 64, False),
 ]
 
 
@@ -1731,15 +1926,16 @@ def win_gather_refusal_phase() -> None:
         check("no_grad" in refused[case], f"{case}: not refused as tracked")
 
 
-def gradient_phase(B=64, N=512, F=128, E=8192, seed=95) -> None:
+def gradient_phase(card: str, B=64, N=512, F=128, E=8192, seed=95) -> None:
     """spmm_pairs and spmm_seg forward and backward on the card against
     autograd through their plain versions on the card: out within
     TOL_KERNEL, dx and dw within TOL_MODEL; one forward and backward
-    launches exactly two spmm_pairs, or one spmm_seg and one
-    spmm_edge_list."""
+    launches exactly two spmm_pairs and one edge_weight_grad, or one
+    spmm_seg, one spmm_edge_list and one edge_weight_grad."""
     from gcm_tpu_torch.benchmarks.spmm_variants import pair_cap
     from gcm_tpu_torch.ops.cuda import spmm as spmm_mod
     from gcm_tpu_torch.ops.cuda import spmm2, spmm_seg
+    from gcm_tpu_torch.ops.cuda.edge_grad import edge_weight_grad
 
     x, edges, w = variant_inputs("wide", B, N, F, E, seed)
     cot = torch.randn((B, N, F), generator=torch.Generator().manual_seed(
@@ -1751,16 +1947,18 @@ def gradient_phase(B=64, N=512, F=128, E=8192, seed=95) -> None:
     cases = {
         "spmm_pairs": (bw, lambda a, b: spmm2.spmm_pairs(a, be, b, N, cap),
                        lambda a, b: spmm2.spmm_pairs_plain(a, be, b, cap),
-                       {spmm2.spmm_pairs: 2}),
+                       {spmm2.spmm_pairs: 2, edge_weight_grad: 1}),
         "spmm_seg": (se[1],
                      lambda a, b: spmm_seg.spmm_seg(a, se[0], b, *se[2:4], N,
                                                     cap),
                      lambda a, b: spmm_seg.spmm_seg_plain(a, se[0], b,
                                                           *se[2:4], cap),
-                     {spmm_seg.spmm_seg: 1, spmm_mod.spmm_edge_list: 1}),
+                     {spmm_seg.spmm_seg: 1, spmm_mod.spmm_edge_list: 1,
+                      edge_weight_grad: 1}),
     }
-    row = dict(B=B, N=N, F=F, E=E, cap=cap)
-    every = (spmm2.spmm_pairs, spmm_seg.spmm_seg, spmm_mod.spmm_edge_list)
+    row = dict(card=card, B=B, N=N, F=F, E=E, cap=cap)
+    every = (spmm2.spmm_pairs, spmm_seg.spmm_seg, spmm_mod.spmm_edge_list,
+             edge_weight_grad)
     for name, (weights, fn, plain, want_launches) in cases.items():
         grads = []
         for f in (fn, plain):
@@ -1785,6 +1983,109 @@ def gradient_phase(B=64, N=512, F=128, E=8192, seed=95) -> None:
         check(float(dw.abs().sum()) > 0, f"{name}: dw is zero")
         row[name] = dict(max_abs_err=errs, launches=counts)
     emit("gradients", **row)
+
+
+# -- phase 9: training both cores ---------------------------------------------
+
+def train_run(label, make_model, make_step, batch, want_launches, steps, lr):
+    """`steps` Adam steps of a model on the card and of its CPU copy (the
+    same numpy weights) on one batch: the loss and every parameter's
+    gradient within TOL_MODEL of the copy's at each step, the kernels
+    launched per forward + backward exactly `want_launches`, a finite loss
+    that falls; wall µs per step (synchronised) and, over one more step,
+    where its time goes."""
+    from gcm_tpu_torch.ops.cuda.dense_gconv import fused_dense_graph_conv
+    from gcm_tpu_torch.ops.cuda.edge_grad import edge_weight_grad
+    from gcm_tpu_torch.ops.cuda.fused_gnn import (fused_dense_gnn,
+                                                  fused_dense_gnn_bwd)
+    from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
+    from gcm_tpu_torch.ops.cuda.spmm_slots import spmm_slots
+
+    counted = (fused_dense_gnn, fused_dense_gnn_bwd, fused_dense_graph_conv,
+               spmm_edge_list, spmm_slots, edge_weight_grad)
+    gpu, cpu = make_model("cuda"), make_model("cpu")
+    gpu_step = make_step(gpu, torch.optim.Adam(gpu.parameters(), lr=lr))
+    cpu_step = make_step(cpu, torch.optim.Adam(cpu.parameters(), lr=lr))
+    batch_c = [t.cuda() for t in batch]
+    losses, step_us, worst = [], [], 0.0
+    for i in range(steps):
+        before = [f.launches for f in counted]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = gpu_step(*batch_c)
+        torch.cuda.synchronize()
+        step_us.append(1e6 * (time.perf_counter() - t0))
+        launched = {f.__name__: f.launches - n
+                    for f, n in zip(counted, before) if f.launches - n}
+        check(launched == want_launches, f"{label} step {i}: launches "
+              f"{launched}, expected {want_launches}")
+        want = cpu_step(*batch)
+        check(bool(torch.isfinite(loss)), f"{label} step {i}: loss {loss}")
+        errs = [abs(float(loss) - float(want))]
+        for (name, p), (_, q) in zip(gpu.named_parameters(),
+                                     cpu.named_parameters()):
+            check(bool(torch.isfinite(p.grad).all()),
+                  f"{label} step {i}: non-finite grad of {name}")
+            errs.append(float((p.grad.cpu() - q.grad).abs().max()))
+        worst = max(worst, *errs)
+        losses.append(float(loss))
+    check(worst <= TOL_MODEL, f"{label}: loss or grads differ from the CPU "
+          f"copy by {worst} > {TOL_MODEL}")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall: "
+          f"{losses}")
+    return dict(losses=losses, max_abs_err_vs_cpu=worst,
+                launches_per_step=launched, us_per_step=step_us,
+                us_per_step_median=statistics.median(step_us),
+                profile_one_step=profile_calls(lambda: gpu_step(*batch_c),
+                                               n=1))
+
+
+def train_phase(card: str, seed: int = 0, B: int = 32, dense_T: int = 160,
+                sparse_T: int = 128, steps: int = 3, lr: float = 1e-3):
+    """Training both README cores at full width through
+    make_dense_supervised_step / make_sparse_supervised_step: the dense
+    core at B=32 over T=160 on a 128-node graph (the ring wraps), one
+    fused_dense_gnn launch and one fused_dense_gnn_bwd call a timestep (the
+    count is of calls: each launches two kernels, the backward and the sum
+    of its parameter partials); the sparse core
+    over one window of [32, 128, 8], default (two spmm_edge_list launches
+    forward, two for dx backward; its edge weights carry no gradient) and
+    aggregation="slots" (two spmm_slots forward, two spmm_edge_list
+    backward)."""
+    from gcm_tpu_torch import (load_jax_params, make_dense_supervised_step,
+                               make_sparse_supervised_step, readme_dense_gcm,
+                               readme_sparse_gcm)
+
+    obs_dim, hidden = 8, 32
+    params = numpy_params(seed, obs_dim, hidden)
+    rng = np.random.default_rng(seed + 3)
+
+    def batch(T):
+        return [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)) for shape in ((B, T, obs_dim), (B, T, hidden))]
+
+    def loaded(build, **kw):
+        def make(device):
+            m = build(obs_size=obs_dim, hidden=hidden, device=device, **kw)
+            load_jax_params(m, params)
+            return m
+        return make
+
+    row = dict(card=card, B=B, lr=lr, steps=steps)
+    row["dense"] = dict(T=dense_T, graph_size=128, **train_run(
+        "dense", loaded(readme_dense_gcm), make_dense_supervised_step,
+        batch(dense_T), {"fused_dense_gnn": dense_T,
+                         "fused_dense_gnn_bwd": dense_T}, steps, lr))
+    taus = torch.full((B,), sparse_T, dtype=torch.int32)
+    for agg, kw, want in (
+            ("default", {}, {"spmm_edge_list": 4}),
+            ("slots", dict(aggregation="slots", slot_k=1),
+             {"spmm_slots": 2, "spmm_edge_list": 2})):
+        row[f"sparse_{agg}"] = dict(T=sparse_T, graph_size=128, **train_run(
+            f"sparse {agg}", loaded(readme_sparse_gcm, **kw),
+            make_sparse_supervised_step, batch(sparse_T) + [taus], want,
+            steps, lr))
+    emit("train", **row)
 
 
 def sweep_phase(card: str) -> None:
@@ -1848,6 +2149,12 @@ KERNEL_META = {
     "take_rows_loop": dict(
         source="gcm_tpu_torch/csrc/gather.cu",
         replaces="benchmarks/spmm_variants.py:287"),
+    "fused_dense_gnn_bwd": dict(
+        source="gcm_tpu_torch/csrc/dense_gnn_bwd.cu",
+        replaces="gcm_tpu/ops/pallas/fused_gnn.py:139"),
+    "edge_weight_grad": dict(
+        source="gcm_tpu_torch/csrc/edge_grad.cu",
+        replaces="gcm_tpu/ops/dispatch.py:40"),
 }
 
 
@@ -1883,7 +2190,9 @@ def main() -> int:
 
     from gcm_tpu_torch.ops import _build
     from gcm_tpu_torch.ops.cuda.dense_gconv import fused_dense_graph_conv
-    from gcm_tpu_torch.ops.cuda.fused_gnn import fused_dense_gnn
+    from gcm_tpu_torch.ops.cuda.edge_grad import edge_weight_grad
+    from gcm_tpu_torch.ops.cuda.fused_gnn import (fused_dense_gnn,
+                                                  fused_dense_gnn_bwd)
     from gcm_tpu_torch.ops.cuda.gather import (take_lanes, take_rows,
                                                take_rows_loop)
     from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
@@ -1916,13 +2225,16 @@ def main() -> int:
              for i, case in enumerate(WIN_CASES)]
     rows += [gather_case(*case[:2], seed=i, main_path=case[2])
              for i, case in enumerate(GATHER_CASES)]
+    rows += [dense_bwd_case(*case[:7], seed=i, main_path=case[7])
+             for i, case in enumerate(DENSE_BWD_CASES)]
+    rows += [edge_grad_case(*case[:5], seed=i, main_path=case[5])
+             for i, case in enumerate(EDGE_GRAD_CASES)]
     launch_floor()
     refusal_phase()
     sparse_refusal_phase()
     sddmm_refusal_phase()
     variant_refusal_phase()
     win_gather_refusal_phase()
-    gradient_phase()
 
     wrappers = {"fused_dense_gnn": fused_dense_gnn,
                 "fused_dense_graph_conv": fused_dense_graph_conv,
@@ -1933,7 +2245,9 @@ def main() -> int:
                 "spmm_onehot_dtype": spmm_onehot_dtype,
                 "spmm_win": spmm_win,
                 "take_rows": take_rows, "take_lanes": take_lanes,
-                "take_rows_loop": take_rows_loop}
+                "take_rows_loop": take_rows_loop,
+                "fused_dense_gnn_bwd": fused_dense_gnn_bwd,
+                "edge_weight_grad": edge_weight_grad}
     paths = [  # (phase, the kernels its path launches)
         (serve_phase, ("fused_dense_gnn",)),
         (scan_phase, ("fused_dense_gnn", "fused_dense_graph_conv")),
@@ -1942,6 +2256,10 @@ def main() -> int:
         (sweep_phase, ("spmm_edge_list", "spmm_onehot_dtype", "spmm_pairs",
                        "spmm_seg", "spmm_prefetch", "spmm_win", "take_rows",
                        "take_lanes", "take_rows_loop")),
+        (gradient_phase, ("spmm_pairs", "spmm_seg", "spmm_edge_list",
+                          "edge_weight_grad")),
+        (train_phase, ("fused_dense_gnn", "fused_dense_gnn_bwd",
+                       "spmm_edge_list", "spmm_slots")),
     ]
     launches = dict.fromkeys(wrappers, 0)
     for phase, kernels in paths:

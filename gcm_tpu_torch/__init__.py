@@ -1,7 +1,9 @@
 """gcm_tpu_torch: the PyTorch / CUDA port of gcm_tpu for one NVIDIA H100.
 
-Plain tensor code is PyTorch; the graph-conv, SpMM and score-row kernels are
-hand-written CUDA for sm_90a (csrc/), built with nvcc into `_build/` at first use. Entry
+Plain tensor code is PyTorch; the graph-conv, SpMM and score-row kernels,
+and the backwards of the graph-conv stack and of the SpMM edge weights, are
+hand-written CUDA for sm_90a (csrc/), built with nvcc into `_build/` at
+first use. The train steps (train/) train both cores through them. Entry
 points run on the CUDA card unless given device="cpu", where every kernel
 takes its plain PyTorch version. This package imports neither JAX nor
 the gcm_tpu package.
@@ -38,8 +40,11 @@ from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
 from gcm_tpu_torch.ops.cuda.spmm_slots import (bucket_sink_slots,
                                                check_slot_overflow, spmm_slots)
 from gcm_tpu_torch.serve.sessions import SessionServer
+from gcm_tpu_torch.train import (make_dense_supervised_step,
+                                 make_sparse_supervised_step)
 from gcm_tpu_torch.utils.packing import pack_hidden, unpack_hidden
-from gcm_tpu_torch.weights import (load_jax_params, sparse_state_from_numpy,
+from gcm_tpu_torch.weights import (load_jax_params, named_from_jax,
+                                   sparse_state_from_numpy,
                                    sparse_state_to_numpy, state_from_numpy,
                                    state_to_numpy)
 
@@ -53,7 +58,8 @@ __all__ = [
     "check_slot_overflow", "coalesce_edges", "default_edge_network",
     "dense_fused_supported", "dense_initial_state", "dense_to_sparse",
     "fused_dense_gnn", "fused_dense_graph_conv", "load_jax_params",
-    "pack_hidden", "readme_dense_gcm", "readme_sparse_gcm", "reset_where",
+    "make_dense_supervised_step", "make_sparse_supervised_step",
+    "named_from_jax", "pack_hidden", "readme_dense_gcm", "readme_sparse_gcm", "reset_where",
     "resolve_device", "sddmm_threshold_row", "sddmm_threshold_row_current",
     "sincos_table", "sparse_initial_state", "sparse_state_from_numpy",
     "sparse_state_to_numpy", "sparse_to_dense", "spmm_edge_list",

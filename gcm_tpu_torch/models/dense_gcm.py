@@ -18,7 +18,9 @@ package) steps 1-3 compose into one rewrite of each array
 (`dense_fused_supported`); both forms give the same result. Stochastic
 selectors take Gumbel noise drawn from an explicit torch.Generator, or given
 as `noise=`. Dense selector API: selector(nodes, adj, weights, num_nodes,
-noise=None) -> (adj, weights). Forward only: call under torch.no_grad().
+noise=None) -> (adj, weights). Differentiable end to end: `scan` is what
+make_dense_supervised_step (train/train_step.py) trains through, with
+`remat=True` recomputing each step in the backward (torch.utils.checkpoint).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gcm_tpu_torch.core.graph_state import (
     DenseGraphState, dense_initial_state, dense_insert, dense_wrap_overflow,
@@ -255,15 +258,23 @@ class DenseGCM(nn.Module):
         [B, T, F_out], final state). dones [B, T]: the memory of batch b is
         wiped after the step where dones[b, t] is True. Stochastic selectors
         draw from `generator`, or take noise[t] (a `step_noise` dict) at
-        step t. `remat` and `unroll` are accepted only at their defaults."""
-        if remat is not False:
-            raise NotImplementedError("remat is not ported yet")
+        step t. remat=True keeps no step's intermediates for the backward
+        but its inputs, and recomputes the step there (one checkpoint a
+        step, with the step's noise drawn before it, so the recomputation
+        sees the same noise). `unroll` is accepted only at its default: it
+        is a compile knob of XLA's scan with no meaning in eager PyTorch."""
         if unroll is not None:
-            raise NotImplementedError("unroll is not ported yet")
+            raise NotImplementedError(
+                "unroll is an XLA scan compile knob with no eager meaning")
         outs = []
         for t in range(xs.shape[1]):
-            out, state = self(xs[:, t], state, generator=generator,
-                              noise=None if noise is None else noise[t])
+            step_noise = (self.step_noise(xs.shape[0], generator)
+                          if noise is None else noise[t])
+            if remat:
+                out, state = checkpoint(self, xs[:, t], state, None,
+                                        step_noise, use_reentrant=False)
+            else:
+                out, state = self(xs[:, t], state, noise=step_noise)
             if dones is not None:
                 state = reset_where(state, dones[:, t])
             outs.append(out)

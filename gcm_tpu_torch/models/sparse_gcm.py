@@ -17,7 +17,9 @@ lengths taus [B] and runs it in one pass:
 
 The state never wraps around: writes past graph_size or max_edges are
 dropped and counted (aux["dropped_edges"]); `check_overflow` raises where
-the reference would. Forward only: call under torch.no_grad().
+the reference would. `forward` and `scan` are differentiable in the
+parameters and x (make_sparse_supervised_step trains through `forward`);
+the guards wait on the host and stay outside the graph.
 
 Not ported, and raising NotImplementedError: hop_cap="auto" (its gate was
 measured on a TPU), positional encoders and aux edge selectors.

@@ -4,7 +4,7 @@ gcm_tpu/nn/sparse_conv.py): GraphConv, GCNConv and the SparseGNN stack.
 Edge list convention: edges[b] = [[sink...], [source...]] with -1 in unused
 lanes; a message flows source -> sink. The 'add' aggregations go through
 `ops/dispatch.py::spmm`, which launches the spmm_edge_list kernel on CUDA
-tensors. Forward only: call under torch.no_grad().
+tensors, forward and backward.
 """
 
 from __future__ import annotations

@@ -19,12 +19,21 @@ def apply_act(h: torch.Tensor, act) -> torch.Tensor:
     raise ValueError(f"unsupported activation {act}")
 
 
+def needs_grad(*tensors) -> bool:
+    """True where autograd tracks one of `tensors` (None allowed): the
+    wrapper then goes through its autograd Function; otherwise it calls its
+    launcher directly, with no autograd node and no saved tensors."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def check_forward_only(*tensors: torch.Tensor) -> None:
-    """The kernels have no backward yet: refuse inputs autograd would track."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    """Refuse inputs autograd would track, for the kernels that have no
+    backward (none in the JAX package either)."""
+    if needs_grad(*tensors):
         raise NotImplementedError(
-            "the gcm_tpu_torch kernels are forward only; call under "
-            "torch.no_grad() (their autograd Functions come with training)")
+            "this gcm_tpu_torch kernel is forward only, as its JAX "
+            "counterpart is; call it under torch.no_grad()")
 
 
 def check_cuda(name: str, t: torch.Tensor, shape: tuple,

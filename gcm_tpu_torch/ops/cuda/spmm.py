@@ -6,14 +6,20 @@ x [B,N,F] float32, edges [B,2,E] int32 (row 0 sink, row 1 source), weights
 [B,E] float32. A lane adds nothing unless 0 <= sink < N and 0 <= src < N,
 so the -1 sentinel drops out. `spmm_edge_list` launches the hand-written
 CUDA kernel (csrc/spmm.cu) for CUDA tensors, or raises, and takes the plain
-PyTorch version, `spmm_edge_list_plain`, only for CPU tensors. Forward
-only.
+PyTorch version, `spmm_edge_list_plain`, only for CPU tensors.
+
+`spmm_edge_list` is differentiable in x and weights (the edges are index
+data), as JAX's `ops/dispatch.py::spmm`: a tracked call goes through
+`_SpmmEdgeList`, whose backward takes dx from the same kernel on the flipped
+edges (sink and source swapped) and dw, only where the weights carry a
+gradient, from `ops/cuda/edge_grad.py::edge_weight_grad`.
 
 `spmm_onehot_dtype(x, edges, weights, dtype)` is the counterpart of the
 one-hot SpMM experiment benchmarks/spmm_variants.py::pallas_onehot_dtype,
 with its own launch count: float32 is the function above; bfloat16 rounds x
 to bf16 as it reads it and each weighted message to bf16 before the f32
-sum, in the bf16 entry of the same kernel.
+sum, in the bf16 entry of the same kernel. It has no backward (none in
+the JAX package either) and refuses tracked inputs.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ import torch
 
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.cuda._launch import (check_cuda, check_forward_only,
-                                            check_rc, ptr, stream_of)
+                                            check_rc, needs_grad, ptr,
+                                            stream_of)
+from gcm_tpu_torch.ops.cuda.edge_grad import edge_weight_grad
 from gcm_tpu_torch.ops.scatter import in_order_slots, in_order_sum
 
 PRECISIONS = ("default", "f32x2", "highest")
@@ -103,8 +111,33 @@ def _launch(x, edges, weights, counter, bf16=False):
     return out
 
 
+def _edge_list(x, edges, weights):
+    if x.device.type == "cpu":
+        return spmm_edge_list_plain(x, edges, weights)
+    return _launch(x, edges, weights, spmm_edge_list)
+
+
+class _SpmmEdgeList(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, edges, weights):
+        ctx.save_for_backward(x, edges, weights)
+        return _edge_list(x, edges, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, edges, weights = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _edge_list(g, edges.flip(1).contiguous(), weights)
+        if ctx.needs_input_grad[2]:
+            dw = edge_weight_grad(g, x, edges).to(weights.dtype)
+        return dx, None, dw
+
+
 def spmm_edge_list(x, edges, weights, precision: str = "default"):
-    """x [B,N,F], edges [B,2,E], weights [B,E] -> [B,N,F].
+    """x [B,N,F], edges [B,2,E], weights [B,E] -> [B,N,F]. Differentiable
+    in x and weights.
 
     precision: 'default', 'f32x2' or 'highest', the JAX kernel's modes. All
     three compute in float32 here, each product and each add rounded once.
@@ -115,10 +148,9 @@ def spmm_edge_list(x, edges, weights, precision: str = "default"):
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; one of "
                          f"{PRECISIONS}")
-    check_forward_only(x, weights)
-    if x.device.type == "cpu":
-        return spmm_edge_list_plain(x, edges, weights)
-    return _launch(x, edges, weights, spmm_edge_list)
+    if needs_grad(x, weights):
+        return _SpmmEdgeList.apply(x, edges, weights)
+    return _edge_list(x, edges, weights)
 
 
 spmm_edge_list.launches = 0  # kernel launches, for callers to read and reset

@@ -20,11 +20,11 @@ lane order, the kernel and its plain version alike.
 `spmm_pairs_T(xT, ...)` is the kernel's entry in the transposed [B,F,N]
 layout of the JAX package, forward only; `spmm_pairs(x, ...)` takes
 [B,N,F] and is differentiable in x and bweights: its backward launches the
-same kernel on the `transpose_pairs` layout for dx and takes dw as the
-gather-dot sum_f g[sink] * x[src] in plain PyTorch (XLA computed it in the
-JAX package). CUDA tensors launch csrc/spmm_pairs.cu, or raise; CPU tensors
-take the plain version, `spmm_pairs_plain`. The layout helpers are plain
-torch, as they were XLA.
+same kernel on the `transpose_pairs` layout for dx and takes dw, the
+gather-dot sum_f g[sink] * x[src], from the edge weight-gradient kernel
+(ops/cuda/edge_grad.py; XLA computed it in the JAX package). CUDA tensors
+launch csrc/spmm_pairs.cu, or raise; CPU tensors take the plain version,
+`spmm_pairs_plain`. The layout helpers are plain torch, as they were XLA.
 """
 
 from __future__ import annotations
@@ -37,8 +37,9 @@ import torch
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.cuda._launch import (check_cuda, check_forward_only,
                                             check_rc, ptr, stream_of)
-from gcm_tpu_torch.ops.scatter import (bucket_rank, edge_mask, gather_nodes,
-                                      in_order_slots, in_order_sum)
+from gcm_tpu_torch.ops.cuda.edge_grad import edge_weight_grad
+from gcm_tpu_torch.ops.scatter import (bucket_rank, edge_mask, in_order_slots,
+                                      in_order_sum)
 
 W = 128  # node window
 PRECISIONS = ("f32x2", "bf16")
@@ -155,16 +156,8 @@ class _SpmmPairs(torch.autograd.Function):
             fe, fw = transpose_pairs(bedges, bweights, num_nodes, cap)
             dx = _forward(g, fe, fw, cap, precision)
         if ctx.needs_input_grad[2]:
-            dw = pair_weight_grad(g, x, bedges).to(bweights.dtype)
+            dw = edge_weight_grad(g, x, bedges).to(bweights.dtype)
         return dx, None, dw, None, None, None
-
-
-def pair_weight_grad(g, x, bedges):
-    """dL/dw of a bucketed lane: sum_f g[sink] * x[src] on valid lanes (the
-    indices clamped into range), 0 elsewhere."""
-    g_sink = gather_nodes(g, bedges[:, 0, :])
-    x_src = gather_nodes(x, bedges[:, 1, :])
-    return torch.where(edge_mask(bedges), (g_sink * x_src).sum(-1), 0.0)
 
 
 def spmm_pairs(x, bedges, bweights, num_nodes: int, cap: int,

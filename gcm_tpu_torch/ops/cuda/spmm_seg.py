@@ -15,8 +15,8 @@ a bucket's capacity are dropped (the totals are returned for the check).
 layout of the JAX package, forward only; `spmm_seg(x, ...)` takes [B,N,F]
 and is differentiable in x and bweights. Its backward takes dx through
 ops/dispatch.py::spmm on the flipped edge list (on the card the
-spmm_edge_list kernel) and dw as the gather-dot of ops/cuda/spmm2.py, in
-plain PyTorch. CUDA tensors launch csrc/spmm_seg.cu, or raise; CPU tensors
+spmm_edge_list kernel) and dw from the edge weight-gradient kernel
+(ops/cuda/edge_grad.py). CUDA tensors launch csrc/spmm_seg.cu, or raise; CPU tensors
 take the plain version, `spmm_seg_plain`.
 """
 
@@ -30,7 +30,8 @@ import torch
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.cuda._launch import (check_cuda, check_forward_only,
                                             check_rc, ptr, stream_of)
-from gcm_tpu_torch.ops.cuda.spmm2 import W, check_layout, pair_weight_grad
+from gcm_tpu_torch.ops.cuda.edge_grad import edge_weight_grad
+from gcm_tpu_torch.ops.cuda.spmm2 import W, check_layout
 from gcm_tpu_torch.ops.scatter import bucket_rank, edge_mask, in_order_sum
 
 C = 128  # lanes per chunk
@@ -155,7 +156,7 @@ class _SpmmSeg(torch.autograd.Function):
             flipped = bedges.flip(1).contiguous()  # sink <-> source
             dx = spmm(g, flipped, bweights)
         if ctx.needs_input_grad[2]:
-            dw = pair_weight_grad(g, x, bedges).to(bweights.dtype)
+            dw = edge_weight_grad(g, x, bedges).to(bweights.dtype)
         return dx, None, dw, None, None, None
 
 

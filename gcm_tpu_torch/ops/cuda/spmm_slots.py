@@ -13,8 +13,15 @@ structural degree bound (TemporalEdge: k = len(hops)) never overflows.
 hand-written CUDA kernel (csrc/spmm_slots.cu) for CUDA tensors, or raises,
 and takes the plain PyTorch version, `spmm_slots_plain`, only for CPU
 tensors. Both do the same multiplies and adds in the same order, one
-rounding each, so their results are bitwise equal. Forward only. The layout helpers are plain torch, as they were XLA
-in the JAX package.
+rounding each, so their results are bitwise equal. The layout helpers are
+plain torch, as they were XLA in the JAX package.
+
+`spmm_slots` is differentiable in x and ws, as JAX's custom VJP: a tracked
+call goes through `_SpmmSlots`, whose backward rebuilds the edge list of the
+layout (`layout_edges`, JAX's `_layout_edges`: a slot of weight 0 is no
+edge), takes dx from the spmm_edge_list kernel on the flipped edges and dw,
+only where ws carries a gradient, from
+`ops/cuda/edge_grad.py::edge_weight_grad` in the layout's shape.
 """
 
 from __future__ import annotations
@@ -25,8 +32,10 @@ import functools
 import torch
 
 from gcm_tpu_torch.ops import _build
-from gcm_tpu_torch.ops.cuda._launch import (check_cuda, check_forward_only,
-                                            check_rc, ptr, stream_of)
+from gcm_tpu_torch.ops.cuda._launch import (check_cuda, check_rc, needs_grad,
+                                            ptr, stream_of)
+from gcm_tpu_torch.ops.cuda.edge_grad import edge_weight_grad
+from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
 from gcm_tpu_torch.ops.scatter import bucket_rank
 
 W = 128  # node window
@@ -86,17 +95,59 @@ def _launch(x, srcs, ws, k):
     return out
 
 
-def spmm_slots(x, srcs, ws, num_nodes: int, k: int):
-    """x [B,N,F], srcs/ws [B,P,k,W] from `bucket_sink_slots` -> [B,N,F].
-    N = num_nodes must be a multiple of 128. CUDA tensors launch the kernel
-    (or raise); CPU tensors take the plain version."""
-    if x.shape[1] != num_nodes or num_nodes % W or num_nodes < W:
-        raise ValueError(f"x has {x.shape[1]} nodes; the slot layout needs "
-                         f"num_nodes={num_nodes}, a multiple of {W}")
-    check_forward_only(x, ws)
+def _forward(x, srcs, ws, k):
     if x.device.type == "cpu":
         return spmm_slots_plain(x, srcs, ws, k)
     return _launch(x, srcs, ws, k)
+
+
+def layout_edges(srcs, ws, num_nodes: int):
+    """The padded edge list [B,2,P*k*W] int32 of a slot layout and its
+    weights [B,P*k*W] (JAX's `_layout_edges`): slot (p, c, lane) is the edge
+    from source (p % nw) * W + srcs to sink (p // nw) * W + lane, and a slot
+    of weight 0 is the sentinel -1."""
+    B, P, k, _ = srcs.shape
+    nw = num_nodes // W
+    p = torch.arange(P, device=srcs.device)[None, :, None, None]
+    lane = torch.arange(W, device=srcs.device)[None, None, None, :]
+    valid = ws != 0.0
+    sink = torch.where(valid, (p // nw) * W + lane, -1)
+    src = torch.where(valid, (p % nw) * W + srcs, -1)
+    edges = torch.stack([sink.reshape(B, -1), src.reshape(B, -1)], dim=1)
+    return edges.to(torch.int32), ws.reshape(B, -1)
+
+
+class _SpmmSlots(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, srcs, ws, num_nodes, k):
+        ctx.num_nodes = num_nodes
+        ctx.save_for_backward(x, srcs, ws)
+        return _forward(x, srcs, ws, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, srcs, ws = ctx.saved_tensors
+        g = g.contiguous()
+        edges, flat_w = layout_edges(srcs, ws, ctx.num_nodes)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = spmm_edge_list(g, edges.flip(1).contiguous(), flat_w)
+        if ctx.needs_input_grad[2]:
+            dw = edge_weight_grad(g, x, edges).reshape(ws.shape).to(ws.dtype)
+        return dx, None, dw, None, None
+
+
+def spmm_slots(x, srcs, ws, num_nodes: int, k: int):
+    """x [B,N,F], srcs/ws [B,P,k,W] from `bucket_sink_slots` -> [B,N,F].
+    N = num_nodes must be a multiple of 128. Differentiable in x and ws.
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    if x.shape[1] != num_nodes or num_nodes % W or num_nodes < W:
+        raise ValueError(f"x has {x.shape[1]} nodes; the slot layout needs "
+                         f"num_nodes={num_nodes}, a multiple of {W}")
+    if needs_grad(x, ws):
+        return _SpmmSlots.apply(x, srcs, ws, num_nodes, k)
+    return _forward(x, srcs, ws, k)
 
 
 spmm_slots.launches = 0  # kernel launches, for callers to read and reset

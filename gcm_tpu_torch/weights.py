@@ -10,11 +10,17 @@ into the port's modules: layers, edge selectors (a learned distance's
 nothing is transposed. DenseGraphConv and GraphConv share one layout, so one
 tree loads into the README's dense and sparse models alike.
 
+`named_from_jax(model, tree)` maps any tree of that layout (parameters,
+their gradients, Adam's moments) onto the model's parameter names, so that
+gradients and updated parameters compare leaf by leaf.
+
 `state_from_numpy` / `sparse_state_from_numpy` and their `*_to_numpy`
 inverses carry the recurrent states across.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -97,6 +103,22 @@ def load_jax_params(module, params) -> None:
     else:
         raise TypeError(f"no JAX parameter layout known for "
                         f"{type(module).__name__}")
+
+
+def named_from_jax(module, tree) -> dict[str, torch.Tensor]:
+    """{name: tensor} over module.named_parameters(), each leaf taken from
+    `tree`, a JAX tree in the layout `load_jax_params` reads. Raises if a
+    parameter has no leaf in the tree."""
+    clone = copy.deepcopy(module)
+    with torch.no_grad():
+        for p in clone.parameters():
+            p.fill_(float("nan"))
+    load_jax_params(clone, tree)
+    out = {name: p.detach() for name, p in clone.named_parameters()}
+    missing = [name for name, t in out.items() if bool(t.isnan().any())]
+    if missing:
+        raise ValueError(f"parameters with no leaf in the tree: {missing}")
+    return out
 
 
 def state_from_numpy(state, device) -> DenseGraphState:

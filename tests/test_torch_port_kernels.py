@@ -122,17 +122,59 @@ def test_shapes_the_kernel_does_not_take_raise(sizes):
         check_sizes(sizes["B"], sizes["N"], sizes["widths"])
 
 
-def test_forward_only_refuses_tracked_inputs():
-    x, adj, flat = make_inputs(1)
-    w = torch.from_numpy(flat[0]).requires_grad_()
+def _forward_only_calls():
+    """name -> call(x) for each wrapper that stays forward only (its JAX
+    counterpart has no VJP either), x a [2, 128, 4] input."""
+    from gcm_tpu_torch.ops.cuda import gather, sddmm, spmm, spmm2, spmm_seg
+    from gcm_tpu_torch.ops.cuda import spmm_prefetch, spmm_win
+
+    edges = torch.randint(0, 128, (2, 2, 16), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(0))
+    w = torch.ones(2, 16)
+    num = torch.tensor([5, 9], dtype=torch.int32)
+    pairs = spmm2.bucket_edges_pairs(edges, w, 128, 128)[:2]
+    segs = spmm_seg.bucket_edges_segments(edges, w, 128, 128)[:4]
+    win = spmm_win.bucket_by_sink_window(edges, w, 128, cap=512)[:2]
+    idx = torch.zeros(3, dtype=torch.int32)
+    return {
+        "sddmm_threshold_row": lambda x: sddmm.sddmm_threshold_row(
+            x[:, 0], x, num, 0.5, "cosine"),
+        "sddmm_threshold_row_current": lambda x: (
+            sddmm.sddmm_threshold_row_current(x, num, 0.5, "cosine")),
+        "spmm_prefetch": lambda x: spmm_prefetch.spmm_prefetch(x, edges, w),
+        "spmm_win": lambda x: spmm_win.spmm_win(x, *win, 128, 512),
+        "spmm_onehot_dtype": lambda x: spmm.spmm_onehot_dtype(
+            x, edges, w, torch.bfloat16),
+        "spmm_pairs_T": lambda x: spmm2.spmm_pairs_T(
+            x.transpose(1, 2), *pairs, 128),
+        "spmm_seg_T": lambda x: spmm_seg.spmm_seg_T(
+            x.transpose(1, 2), *segs, 128),
+        "take_rows": lambda x: gather.take_rows(x[0], idx),
+        "take_lanes": lambda x: gather.take_lanes(x[0], idx[None].expand(
+            128, 3).contiguous()),
+        "take_rows_loop": lambda x: gather.take_rows_loop(x[0], idx),
+    }
+
+
+FORWARD_ONLY = ("sddmm_threshold_row", "sddmm_threshold_row_current",
+                "spmm_prefetch", "spmm_win", "spmm_onehot_dtype",
+                "spmm_pairs_T", "spmm_seg_T", "take_rows", "take_lanes",
+                "take_rows_loop")
+
+
+@pytest.mark.parametrize("name", FORWARD_ONLY)
+def test_forward_only_refuses_tracked_inputs(name):
+    """The wrappers without a backward refuse an input autograd tracks and
+    run under torch.no_grad(); the rest are differentiable
+    (tests/test_torch_port_training.py)."""
+    calls = _forward_only_calls()
+    assert sorted(calls) == sorted(FORWARD_ONLY)
+    call = calls[name]
+    x = torch.rand(2, 128, 4, generator=torch.Generator().manual_seed(1))
     with pytest.raises(NotImplementedError, match="no_grad"):
-        fused_dense_graph_conv(torch.from_numpy(x), torch.from_numpy(adj), w,
-                               torch.from_numpy(flat[1]),
-                               torch.from_numpy(flat[2]))
+        call(x.clone().requires_grad_())
     with torch.no_grad():
-        fused_dense_graph_conv(torch.from_numpy(x), torch.from_numpy(adj), w,
-                               torch.from_numpy(flat[1]),
-                               torch.from_numpy(flat[2]))
+        call(x.clone().requires_grad_())
 
 
 def test_dense_bound_counts_3xtf32_on_tensor_cores():
@@ -152,3 +194,27 @@ def test_dense_bound_counts_3xtf32_on_tensor_cores():
                                                  rel=1e-3)
     ms, by = chip_smoke.dense_bound_ms(32, 128, (32, 32))
     assert by == "bytes" and ms == pytest.approx(0.00094, rel=2e-3)
+
+
+def test_dense_bwd_bound_counts_3xtf32_on_tensor_cores():
+    """chip_smoke.py's bound for the stack backward counts its products as
+    the forward's bound does, three TF32 products for each at the tensor
+    cores' dense TF32 rate: at the scan's training step (B=32, N=128,
+    32 -> 32 -> 32, no dadj) each layer replays its forward (50.3 MFLOP),
+    forms dagg, dW_rel and dW_root (25.2) and dh (41.9), 234.9 MFLOP in
+    all, three times over at 495 TFLOP/s, above its 3.70 MB over 3.35 TB/s;
+    dadj adds the adjacency written and its product."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_bounds", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    ms, by = chip_smoke.dense_bwd_bound_ms(32, 128, (32, 32, 32), False)
+    assert by == "operations" and ms == pytest.approx(
+        3 * 234_881_024 / 495e12 * 1e3, rel=1e-9)
+    ms, by = chip_smoke.dense_bwd_bound_ms(32, 128, (32, 32, 32), True)
+    assert by == "operations" and ms == pytest.approx(
+        3 * (234_881_024 + 2 * 2 * 32 * 128 * 128 * 32) / 495e12 * 1e3,
+        rel=1e-9)

@@ -161,29 +161,11 @@ def _fused_step_with_other_selector(m):
     model._call_fused(torch.zeros(1, 8), model.initial_state(1, 8))
 
 
-def _training_through_learned_edges(m):
-    """Learned edges run forward only: with gradients on, the graph-conv
-    kernels refuse the adjacency they produce (the model's other
-    parameters are frozen, so only that adjacency carries a gradient)."""
-    from gcm_tpu_torch import LearnedEdge
-
-    m.requires_grad_(False)
-    model = DenseGCM(m.gnn, preprocessor=m.preprocessor,
-                     edge_selectors=LearnedEdge(8, deterministic=True,
-                                                device="cpu"),
-                     graph_size=N, device="cpu")
-    with torch.enable_grad():
-        model(torch.zeros(1, 8), model.initial_state(1, 8))
-
-
 @pytest.mark.parametrize("make", [
-    _training_through_learned_edges,
-    lambda m: m.scan(torch.zeros(1, 2, 8), m.initial_state(1, 8),
-                     remat=True),
     lambda m: m.scan(torch.zeros(1, 2, 8), m.initial_state(1, 8), unroll=4),
     lambda m: DenseGCM(m.gnn, pooled=True, device="cpu"),
     _fused_step_with_other_selector,
-], ids=["learned_edges", "remat", "unroll", "pooled", "other_selector"])
+], ids=["unroll", "pooled", "other_selector"])
 def test_unported_options_raise(make):
     from gcm_tpu_torch import readme_dense_gcm
 

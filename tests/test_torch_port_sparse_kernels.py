@@ -24,7 +24,7 @@ from gcm_tpu.ops.pallas.spmm import spmm_edge_list as jax_spmm_edge_list
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.cuda import spmm as spmm_mod
 from gcm_tpu_torch.ops.cuda import spmm_slots as slots_mod
-from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
+from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list, spmm_onehot_dtype
 from gcm_tpu_torch.ops.cuda.spmm_slots import (bucket_sink_slots,
                                                check_slot_overflow, spmm_slots)
 
@@ -229,13 +229,21 @@ def test_kernel_build(monkeypatch):
 
 
 def test_forward_only_refuses_tracked_inputs():
+    """Of this file's kernels only the one-hot SpMM stays forward only (no
+    VJP in the JAX experiment either): it refuses a tracked input. The
+    edge-list and slot SpMMs are differentiable in x and their weights,
+    and their gradients flow through (values against JAX in
+    tests/test_torch_port_training.py)."""
     x = torch.zeros(1, 128, 4, requires_grad=True)
     edges = torch.full((1, 2, 3), -1, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="no_grad"):
-        spmm_edge_list(x, edges, torch.ones(1, 3))
-    srcs, ws, _ = bucket_sink_slots(edges, torch.ones(1, 3), 128, 1)
-    with pytest.raises(NotImplementedError, match="no_grad"):
-        spmm_slots(x, srcs, ws, 128, 1)
+        spmm_onehot_dtype(x, edges, torch.ones(1, 3), torch.bfloat16)
     with torch.no_grad():
-        spmm_edge_list(x, edges, torch.ones(1, 3))
-        spmm_slots(x, srcs, ws, 128, 1)
+        spmm_onehot_dtype(x, edges, torch.ones(1, 3), torch.bfloat16)
+    srcs, ws, _ = bucket_sink_slots(edges, torch.ones(1, 3), 128, 1)
+    w = torch.ones(1, 3, requires_grad=True)
+    ws = ws.clone().requires_grad_()
+    for out, inputs in ((spmm_edge_list(x, edges, w), (x, w)),
+                        (spmm_slots(x, srcs, ws, 128, 1), (x, ws))):
+        grads = torch.autograd.grad(out.sum(), inputs)
+        assert all(not g.any() for g in grads)  # no edge: zero gradients
