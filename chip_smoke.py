@@ -82,13 +82,19 @@ for bit against theirs (NaN where NaN) at the probe's shapes, at the
 sweep's message gather ([32768, 128] by 524,288 indices; lanes [32768,
 512] by [32768, 128]), with indices past either end and, for
 take_rows_loop, at 65,536 rows, beside index_select / torch.gather; it
-checks every kernel's refusals. It holds the stack backward fused_dense_gnn_bwd (csrc/dense_gnn_bwd.cu) against
-its plain version, JAX's formulas (dx, dadj where asked for, every
-parameter's gradient, each within 1e-5 of its largest magnitude, at least
-1), at the dense scan's training shape, the served
-batch, a learned adjacency, each activation, one layer, and the adjacency
-streamed from device memory (N = 512, 1,024), beside autograd's backward
-through the bmm + addmm chain; and edge_weight_grad (csrc/edge_grad.cu)
+checks every kernel's refusals. It holds the stack backward
+fused_dense_gnn_bwd (csrc/dense_gnn_bwd.cu; no register spills in its
+build log) against its plain version, JAX's formulas (dx, dadj where asked
+for, every parameter's gradient, each within 1e-5 of its largest
+magnitude, at least 1), at the dense scan's training shape, the served
+batch, a learned adjacency, each activation, one layer, the adjacency
+streamed in chunks (N = 512, 1,024), one element in a cluster of 16, a
+single 16-row tile, four layers (widths 128, 8, 1, 24, 128), B = 300 and
+rows that fit in shared memory at no cluster size (global scratch), each
+with the kernel's plan (blocks an element, rows a block, what stays in
+shared memory; every route the planner takes runs in some case), and at
+every other cluster size the shape allows, checked and timed beside the
+plan's, beside autograd's backward through the bmm + addmm chain; and edge_weight_grad (csrc/edge_grad.cu)
 bitwise against its plain version at the sweep's point, the sparse path's
 window, indices of N or more, F = 260 and no valid lane, beside autograd's
 backward through torch.sparse.mm to its values.
@@ -100,6 +106,7 @@ check raises, so the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -426,7 +433,7 @@ def dense_bwd_case(case, B, N, widths, acts, need_adj, inputs, seed,
     once)."""
     from gcm_tpu_torch.ops.cuda.fused_gnn import (
         NEED_ADJ, NEED_PARAMS, NEED_X, fused_dense_gnn_bwd,
-        fused_dense_gnn_bwd_plain)
+        fused_dense_gnn_bwd_plain, fused_dense_gnn_bwd_plan)
 
     x, adj, *params = make_case(B, N, widths, seed, inputs)
     g = (torch.rand((B, N, widths[-1]), generator=torch.Generator()
@@ -454,13 +461,32 @@ def dense_bwd_case(case, B, N, widths, acts, need_adj, inputs, seed,
         return d[:len(leaves) - 2 * L] + tuple(t for p in per_layer
                                                for t in p)
 
+    want = grads(fused_dense_gnn_bwd_plain)
     err_scale = torch.cat([
         torch.full((t.numel(),), max(1.0, float(t.abs().max())),
-                   device=t.device) for t in grads(fused_dense_gnn_bwd_plain)])
+                   device=t.device) for t in want])
+    # every cluster size the shape has a plan at, each checked as the
+    # choice is and timed beside it, for the planner's choice to be judged
+    by_c = {}
+    for C in (1, 2, 4, 8, 16):
+        plan = fused_dense_gnn_bwd_plan(widths, B, N, x.device, cluster=C)
+        if plan is None:
+            continue
+
+        def run(C=C):
+            return grads(functools.partial(fused_dense_gnn_bwd, cluster=C))
+
+        err = float(((flat(run()) - flat(want)).abs() / err_scale).max())
+        check(err <= TOL_KERNEL, f"fused_dense_gnn_bwd {case} in clusters of "
+              f"{C}: max scaled err {err} > {TOL_KERNEL}")
+        by_c[C] = dict(ms=time_ms(run)[0], max_scaled_err=err,
+                       route=[plan[k] for k in BWD_ROUTE_KEYS])
     return kernel_row(
         "fused_dense_gnn_bwd",
         dict(case=case, B=B, N=N, widths=list(widths), acts=list(acts),
-             dadj=need_adj, inputs=inputs),
+             dadj=need_adj, inputs=inputs,
+             plan=fused_dense_gnn_bwd_plan(widths, B, N, x.device),
+             by_C=by_c),
         main_path, kernel=lambda: grads(fused_dense_gnn_bwd),
         plain=lambda: grads(fused_dense_gnn_bwd_plain), library=library,
         bound=dense_bwd_bound_ms(B, N, widths, need_adj),
@@ -472,8 +498,11 @@ DENSE_BWD_CASES = [
     # dense scan's training step (its adjacency carries no gradient), the
     # served batch, a learned adjacency (dadj), the other activations and
     # one layer (the one-layer conv's backward), a weighted adjacency, and
-    # the adjacency streamed from device memory (its rows and columns of a
-    # block over 160 KB: N = 512 and 1,024), with odd widths
+    # the adjacency streamed in chunks (N = 512 and 1,024), with odd
+    # widths; then one element in the largest cluster, a single 16-row tile,
+    # four layers with the widest width, a width of 1 and widths off the
+    # 8-column MMA grid, a grid of no whole number of waves, and rows that
+    # fit in shared memory at no cluster size (the global scratch)
     ("scan", 32, 128, (32, 32, 32), ("tanh", "tanh"), False, "0/1", True),
     ("served batch", 256, 128, (32, 32, 32), ("tanh", "tanh"), False, "0/1",
      False),
@@ -485,7 +514,22 @@ DENSE_BWD_CASES = [
      False),
     ("streamed, odd widths", 2, 1024, (13, 30, 17, 7),
      ("tanh", "relu", None), False, "x*8", False),
+    ("one element", 1, 1024, (32, 32, 32), ("tanh", "tanh"), False, "0/1",
+     False),
+    ("one tile", 8, 16, (32, 32, 32), ("tanh", "tanh"), True, "weighted",
+     False),
+    ("four layers", 16, 128, (128, 8, 1, 24, 128),
+     ("relu", "tanh", None, "tanh"), True, "0/1", False),
+    ("B=300", 300, 128, (32, 32, 32), ("tanh", "tanh"), False, "0/1", False),
+    ("scratch", 2, 1024, (128, 128, 128), ("tanh", "tanh"), True,
+     "weighted", False),
 ]
+# what a block of the backward keeps in shared memory, as its plan says:
+# its rows (else they are in global scratch), the adjacency, the weights;
+# every route the planner takes (kRoutes in csrc/dense_gnn_bwd.cu) runs in
+# some case of DENSE_BWD_CASES
+BWD_ROUTE_KEYS = ("onchip", "adj_resident", "w_resident")
+BWD_ROUTES = {(1, 1, 1), (1, 0, 1), (1, 0, 0), (0, 0, 0)}
 
 
 def edge_grad_case(case, B, N, F, E, seed, main_path):
@@ -2208,6 +2252,10 @@ def main() -> int:
     ptxas = [ln for src in waited for ln in ptxas_lines(src)]
     emit("build", seconds=time.perf_counter() - t0, sources=waited,
          ptxas=ptxas)
+    spills = [ln for ln in ptxas if ln.startswith("dense_gnn_bwd ")
+              and "spill" in ln and "0 bytes spill stores, 0 bytes spill "
+              "loads" not in ln]
+    check(not spills, f"the stack backward spills: {spills}")
 
     rows = [kernel_case(*case[:6], seed=i, main_path=case[6])
             for i, case in enumerate(KERNEL_CASES)]
@@ -2227,6 +2275,11 @@ def main() -> int:
              for i, case in enumerate(GATHER_CASES)]
     rows += [dense_bwd_case(*case[:7], seed=i, main_path=case[7])
              for i, case in enumerate(DENSE_BWD_CASES)]
+    routes = {r["case"]: tuple(r["plan"][k] for k in BWD_ROUTE_KEYS)
+              for r in rows if r["kernel"] == "fused_dense_gnn_bwd"}
+    check(set(routes.values()) == BWD_ROUTES,
+          f"the stack backward's cases take routes {routes}, not each of "
+          f"{sorted(BWD_ROUTES)}")
     rows += [edge_grad_case(*case[:5], seed=i, main_path=case[5])
              for i, case in enumerate(EDGE_GRAD_CASES)]
     launch_floor()

@@ -198,17 +198,48 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("dense_gnn_bwd")
     vp, ip = ctypes.c_void_p, ctypes.c_int
     lib.gcm_dense_gnn_bwd_scratch_floats.argtypes = [
-        ctypes.POINTER(ip), ip, ip, ip, ip]
+        ctypes.POINTER(ip), ip, ip, ip, ip, ip]
     lib.gcm_dense_gnn_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.gcm_fused_dense_gnn_bwd_f32.argtypes = [
         vp, vp, vp, ctypes.POINTER(vp), ctypes.POINTER(vp),
         ctypes.POINTER(vp), ctypes.POINTER(ip), ctypes.POINTER(ip), ip, ip,
-        ip, ip, vp, vp, vp, vp, ip, vp]
+        ip, ip, vp, vp, vp, vp, ip, ip, vp]
     lib.gcm_fused_dense_gnn_bwd_f32.restype = ip
+    lib.gcm_dense_gnn_bwd_plan.argtypes = [
+        ctypes.POINTER(ip), ip, ip, ip, ip, ip, ctypes.POINTER(ip)]
+    lib.gcm_dense_gnn_bwd_plan.restype = ip
     return lib
 
 
-def _launch_bwd(x, adj, flat_params, acts, g, need):
+BWD_PLAN_KEYS = ("C", "R", "wn", "nt", "onchip", "adj_resident",
+                 "w_resident", "gk", "smem", "resident_blocks")
+
+
+_NO_PLAN = 9  # cudaErrorInvalidConfiguration
+
+
+def fused_dense_gnn_bwd_plan(widths, B, N, device, cluster=0):
+    """How the backward kernel splits a [B, N] batch of this stack on the
+    CUDA `device`: the cluster size C (blocks a batch element), rows a
+    block R, warps across a row tile's n-tiles wn and n-tiles a warp nt,
+    whether the blocks' rows stay in shared memory (onchip, else a global
+    scratch), whether the adjacency and the weights stay resident, the
+    chunk rows gk, shared-memory bytes a block, and how many blocks the
+    card holds at once in clusters of C. `cluster` (1, 2, 4, 8 or 16) asks
+    for that C in place of the planner's choice (0); None where the shape
+    has no plan at that C."""
+    widths = [int(w) for w in widths]
+    out = (ctypes.c_int * len(BWD_PLAN_KEYS))()
+    rc = _bwd_lib().gcm_dense_gnn_bwd_plan(
+        (ctypes.c_int * len(widths))(*widths), len(widths) - 1, B, N,
+        cluster, torch.device(device).index or 0, out)
+    if rc == _NO_PLAN and cluster:
+        return None
+    check_rc("fused_dense_gnn_bwd_plan", rc)
+    return dict(zip(BWD_PLAN_KEYS, out))
+
+
+def _launch_bwd(x, adj, flat_params, acts, g, need, cluster):
     n_layers = len(acts)
     B, N, _ = x.shape
     widths = check_stack(x, adj, flat_params, acts)
@@ -217,7 +248,7 @@ def _launch_bwd(x, adj, flat_params, acts, g, need):
     lib = _bwd_lib()
     c_widths = (ctypes.c_int * (n_layers + 1))(*widths)
     n_scratch = lib.gcm_dense_gnn_bwd_scratch_floats(c_widths, n_layers, B, N,
-                                                     dev.index)
+                                                     cluster, dev.index)
     scratch = torch.empty(n_scratch, device=dev, dtype=torch.float32)
     dx = (torch.empty_like(x) if need & NEED_X else None)
     dadj = (torch.empty_like(adj) if need & NEED_ADJ else None)
@@ -232,8 +263,8 @@ def _launch_bwd(x, adj, flat_params, acts, g, need):
     rc = lib.gcm_fused_dense_gnn_bwd_f32(
         ptr(x), ptr(adj), ptr(g), ptrs(0), ptrs(1), ptrs(2), c_widths,
         (ctypes.c_int * n_layers)(*[ACT_CODES[a] for a in acts]), n_layers,
-        B, N, need, ptr(dx), ptr(dadj), ptr(dflat), ptr(scratch), dev.index,
-        stream_of(dev))
+        B, N, need, ptr(dx), ptr(dadj), ptr(dflat), ptr(scratch), cluster,
+        dev.index, stream_of(dev))
     check_rc("fused_dense_gnn_bwd", rc)
     fused_dense_gnn_bwd.launches += 1
     dparams = None
@@ -243,17 +274,19 @@ def _launch_bwd(x, adj, flat_params, acts, g, need):
     return dx, dadj, dparams
 
 
-def fused_dense_gnn_bwd(x, adj, flat_params, acts, g, need):
+def fused_dense_gnn_bwd(x, adj, flat_params, acts, g, need, cluster=0):
     """The stack's backward for the cotangent g [B,N,F_out]: (dx, dadj,
     dparams) as `fused_dense_gnn_bwd_plain` gives them, each only where its
     flag is in `need` (NEED_X, NEED_ADJ, NEED_PARAMS). CUDA tensors launch
-    the kernel of csrc/dense_gnn_bwd.cu (or raise); CPU tensors take the
-    plain version."""
+    the kernel of csrc/dense_gnn_bwd.cu (or raise), in clusters of
+    `cluster` blocks a batch element where it is not 0 (the planner's
+    choice), as `fused_dense_gnn_bwd_plan` says; CPU tensors take the plain
+    version."""
     flat_params, acts = tuple(flat_params), tuple(acts)
     g = g.contiguous()
     if x.device.type == "cpu":
         return fused_dense_gnn_bwd_plain(x, adj, flat_params, acts, g, need)
-    return _launch_bwd(x, adj, flat_params, acts, g, need)
+    return _launch_bwd(x, adj, flat_params, acts, g, need, cluster)
 
 
 # calls of the C entry, for callers to read: each call launches the
