@@ -94,10 +94,16 @@ rows that fit in shared memory at no cluster size (global scratch), each
 with the kernel's plan (blocks an element, rows a block, what stays in
 shared memory; every route the planner takes runs in some case), and at
 every other cluster size the shape allows, checked and timed beside the
-plan's, beside autograd's backward through the bmm + addmm chain; and edge_weight_grad (csrc/edge_grad.cu)
-bitwise against its plain version at the sweep's point, the sparse path's
-window, indices of N or more, F = 260 and no valid lane, beside autograd's
-backward through torch.sparse.mm to its values.
+plan's, beside autograd's backward through the bmm + addmm chain; and edge_weight_grad (csrc/edge_grad.cu;
+no register spills in its build) bitwise against its plain version at the
+sweep's point (the raw list, its pair and segment buckets as the gradient
+phase hands them, every lane into one sink), two sink tiles an element,
+the sparse path's window, indices of N or more (F = 13 and 45), F = 260,
+no valid lane and rows of 16,387 floats, on the planner's plan and on
+other plans forced through its tile_bytes and splits (each a different
+plan: the other route on either side of its warp-a-lane threshold, other
+tiles and splits at the sweep's point), beside one
+torch.sparse.sampled_addmm.
 Phases 4-10 each run with every launch count set to 0 just before and
 read just after; each must launch the kernels of its path.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
@@ -532,20 +538,38 @@ BWD_ROUTE_KEYS = ("onchip", "adj_resident", "w_resident")
 BWD_ROUTES = {(1, 1, 1), (1, 0, 1), (1, 0, 0), (0, 0, 0)}
 
 
-def edge_grad_case(case, B, N, F, E, seed, main_path):
+def edge_grad_case(case, B, N, F, E, plans, seed, main_path):
     """The edge weight-gradient (csrc/edge_grad.cu) bitwise against its
-    plain version, which adds in the kernel's order. Library: the same
-    function as one torch.sparse.sampled_addmm (g x^T sampled at the
+    plain version, which adds in the kernel's order, on the planner's plan
+    and on each (tile_bytes, splits) of plans (each checked bitwise and
+    timed as by_plan, for the planner's choice to be judged; each must be
+    a plan other than the planner's and the others'; no plan changes the
+    order). "pairs layout" and "segment layout" hand it the
+    bucket_edges_pairs and bucket_edges_segments lanes of the case's random
+    edges, as gradient_phase's pair and segment backwards do. Library: the
+    same function as one torch.sparse.sampled_addmm (g x^T sampled at the
     block-diagonal CSR of the in-range lanes; autograd's backward through
     torch.sparse.mm to its values waits for the host, so the harness sees
     no device time of it), its values mapped back onto the lanes for the
     error only."""
-    from gcm_tpu_torch.benchmarks.spmm_variants import block_diagonal_coo
-    from gcm_tpu_torch.ops.cuda.edge_grad import (edge_weight_grad,
-                                                  edge_weight_grad_plain)
+    from gcm_tpu_torch.benchmarks.spmm_variants import (block_diagonal_coo,
+                                                        pair_cap)
+    from gcm_tpu_torch.ops.cuda import spmm2, spmm_seg
+    from gcm_tpu_torch.ops.cuda.edge_grad import (_launch, edge_weight_grad,
+                                                  edge_weight_grad_plain,
+                                                  edge_weight_grad_plan)
 
-    x, edges, w = (torch.from_numpy(a).cuda()
-                   for a in spmm_inputs(case, B, N, F, E, seed))
+    x, edges, w = (torch.from_numpy(a).cuda() for a in spmm_inputs(
+        "odd" if case.startswith("odd") else case, B, N, F, E, seed))
+    if case in ("pairs layout", "segment layout"):
+        cap = pair_cap(N, E)
+        if case == "pairs layout":
+            edges, w, counts = spmm2.bucket_edges_pairs(edges, w, N, cap)
+        else:
+            edges, w, _, _, counts = spmm_seg.bucket_edges_segments(
+                edges, w, N, cap)
+        spmm2.check_bucket_overflow(counts, cap)
+        E = edges.shape[2]
     g = torch.from_numpy(np.random.default_rng(seed + 1000).standard_normal(
         (B, N, F)).astype(np.float32)).cuda()
     coo = block_diagonal_coo(edges, w, N)
@@ -569,9 +593,29 @@ def edge_grad_case(case, B, N, F, E, seed, main_path):
         r = torch.clamp(edges[:, i].long(), max=N - 1) + off
         return int(torch.unique(r[valid]).numel())
 
+    plan = edge_weight_grad_plan(B, N, F, E, x.device)
+    want = edge_weight_grad_plain(g, x, edges)
+    seen, by_plan = [plan], {}
+    for tile_bytes, splits in plans:
+        forced = edge_weight_grad_plan(B, N, F, E, x.device, tile_bytes,
+                                       splits)
+        check(forced not in seen, f"edge_weight_grad {case}: the forced "
+              f"plan {tile_bytes}/{splits} is {forced}, a plan already run")
+        seen.append(forced)
+
+        def run(tile_bytes=tile_bytes, splits=splits):
+            return _launch(g, x, edges, tile_bytes, splits)
+
+        check(bitwise_equal(run(), want), f"edge_weight_grad {case} on plan "
+              f"{forced}: not bitwise equal to its plain version")
+        by_plan[f"{tile_bytes}/{splits}"] = dict(
+            ms=time_ms(run)[0], tiles=forced["tiles"],
+            splits=forced["splits"])
     n_valid = int(valid.sum())
     return kernel_row(
-        "edge_weight_grad", dict(case=case, B=B, N=N, F=F, E=E), main_path,
+        "edge_weight_grad",
+        dict(case=case, B=B, N=N, F=F, E=E, plan=plan, by_plan=by_plan),
+        main_path,
         kernel=lambda: edge_weight_grad(g, x, edges),
         plain=lambda: edge_weight_grad_plain(g, x, edges),
         library=lambda: torch.sparse.sampled_addmm(csr, g2, x2t, beta=0.0)
@@ -581,17 +625,46 @@ def edge_grad_case(case, B, N, F, E, seed, main_path):
         tol=0.0)  # bitwise: both add in the same order
 
 
+# forced (tile_bytes, splits) plans: a warp a lane; the tiled kernel with
+# csrc/edge_grad.cu's own tile (kTileBytes) on a call the planner gives a
+# warp a lane; and for the sweep's layouts 64 and 128 KB tiles of g (4 and
+# 2 tiles an element), one and eight splits a tile
+LANE, TILED = (-1, 0), (262144, 0)
+SWEEP_PLANS = ((65536, 0), (131072, 0), (0, 1), (0, 8), LANE)
 EDGE_GRAD_CASES = [
-    # (case, B, N, F, E, main_path): the SpMM sweep's point, where the
-    # gradient phase's pair and segment backwards launch it; the sparse
-    # path's window; sentinels and indices of N or more (clamped rows);
-    # many columns; no valid lane
-    ("wide", 64, 512, 128, 8192, True),
-    ("main path", 32, 128, 32, 512, False),
-    ("odd", 2, 300, 13, 777, False),
-    ("many columns", 4, 256, 260, 2048, False),
-    ("empty", 2, 128, 32, 64, False),
+    # (case, B, N, F, E, plans, main_path): the SpMM sweep's point, raw and
+    # as the pair and segment buckets gradient_phase's backwards hand it
+    # (E = 8192 raw lanes, 16 buckets of pair_cap 1,024 lanes, about half
+    # of them empty); every lane into sink 7; two tiles of sink rows an
+    # element (against one); the sparse path's window; sentinels and
+    # indices of N or more (clamped rows: every "odd" case), F = 13 on
+    # either side of the warp-a-lane threshold (16,384 lanes) and F = 45;
+    # many columns; no valid lane; rows of 16,387 floats. Each call near
+    # the threshold also runs on the other route. Together they take every
+    # route of csrc/edge_grad.cu (EDGE_GRAD_ROUTES).
+    ("wide", 64, 512, 128, 8192, SWEEP_PLANS, True),
+    ("main path", 32, 128, 32, 512, ((0, 1), LANE), False),
+    ("odd", 2, 300, 13, 777, (TILED,), False),
+    ("many columns", 4, 256, 260, 2048, (TILED,), False),
+    ("empty", 2, 128, 32, 64, (TILED,), False),
+    ("pairs layout", 64, 512, 128, 8192, SWEEP_PLANS, True),
+    ("hot row", 64, 512, 128, 8192, ((0, 1), LANE), False),
+    ("segment layout", 64, 512, 128, 8192, SWEEP_PLANS, True),
+    ("two tiles", 16, 1024, 128, 8192, ((524288, 0),), False),
+    ("odd, tiled", 16, 300, 13, 1024, (LANE,), False),
+    ("odd, F = 45", 16, 256, 45, 2048, (LANE,), False),
+    ("wide rows", 2, 16, 16387, 40, (TILED,), False),
 ]
+# the kernel's routes (tiled; tiled with F <= 32; tiled with float4 rows),
+# each taken by some case of EDGE_GRAD_CASES on its own plan
+EDGE_GRAD_ROUTES = {(1, True, True), (1, True, False), (1, False, True),
+                    (1, False, False), (0, False, False)}
+
+
+def edge_grad_route(row):
+    tiled = row["plan"]["tiled"]
+    return (tiled, bool(tiled) and row["F"] <= 32,
+            bool(tiled) and row["F"] % 4 == 0)
 
 
 def launch_floor() -> dict:
@@ -2252,10 +2325,12 @@ def main() -> int:
     ptxas = [ln for src in waited for ln in ptxas_lines(src)]
     emit("build", seconds=time.perf_counter() - t0, sources=waited,
          ptxas=ptxas)
-    spills = [ln for ln in ptxas if ln.startswith("dense_gnn_bwd ")
+    spills = [ln for ln in ptxas
+              if ln.startswith(("dense_gnn_bwd ", "edge_grad "))
               and "spill" in ln and "0 bytes spill stores, 0 bytes spill "
               "loads" not in ln]
-    check(not spills, f"the stack backward spills: {spills}")
+    check(not spills, f"the stack backward or the edge weight-gradient "
+          f"spills: {spills}")
 
     rows = [kernel_case(*case[:6], seed=i, main_path=case[6])
             for i, case in enumerate(KERNEL_CASES)]
@@ -2280,8 +2355,15 @@ def main() -> int:
     check(set(routes.values()) == BWD_ROUTES,
           f"the stack backward's cases take routes {routes}, not each of "
           f"{sorted(BWD_ROUTES)}")
-    rows += [edge_grad_case(*case[:5], seed=i, main_path=case[5])
+    rows += [edge_grad_case(*case[:6], seed=i, main_path=case[6])
              for i, case in enumerate(EDGE_GRAD_CASES)]
+    grad_rows = [r for r in rows if r["kernel"] == "edge_weight_grad"]
+    routes = {r["case"]: edge_grad_route(r) for r in grad_rows}
+    check(set(routes.values()) == EDGE_GRAD_ROUTES,
+          f"the edge weight-gradient's cases take routes {routes}, not each "
+          f"of {sorted(EDGE_GRAD_ROUTES)}")
+    check(any(r["plan"]["tiles"] > 1 for r in grad_rows),
+          "no edge weight-gradient case's own plan takes two tiles or more")
     launch_floor()
     refusal_phase()
     sparse_refusal_phase()

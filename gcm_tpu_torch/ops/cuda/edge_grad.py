@@ -9,15 +9,24 @@ into 0..N-1 as `gather_nodes` clamps them, and 0 on every other lane. So a
 source of N or more reads row N - 1, as JAX's dw does, though the forward
 kernels drop such a lane.
 
-The order of the sum is fixed, the same in the kernel and its plain version,
-so the two agree bitwise: column f goes to part f % 32; each part adds its
-columns in ascending order (one rounding per product and per add), and the
-32 parts are added by halves (part p + part p + 16, then p + 8, ... , 1).
+The order of the sum is fixed by F alone, the same in the kernel on every
+plan and in its plain version, so the two agree bitwise: column f goes to
+part f % 32; each part adds its columns in ascending order from 0 (one
+rounding per product and per add), and the 32 parts are added by halves
+(part p + part p + 16 for p < 16, then p + 8, p + 4, p + 2, p + 1). The
+kernel (csrc/edge_grad.cu) gives a lane eight threads, thread t holding
+parts 4t .. 4t + 3 (its float4 of each 32 columns), so its first three
+halvings are shuffles and its last two adds in one thread; calls of fewer
+than 16,384 lanes (B * E), or with N * F of 2^31 or more, take a warp a
+lane, thread t holding part t.
 
-`edge_weight_grad` launches the hand-written CUDA kernel (csrc/edge_grad.cu)
-for CUDA tensors, or raises, and takes the plain version,
-`edge_weight_grad_plain`, only for CPU tensors. Neither input carries a
-gradient through it: it is itself a backward.
+`edge_weight_grad` launches the hand-written CUDA kernel for CUDA tensors,
+or raises, and takes the plain version, `edge_weight_grad_plain`, only for
+CPU tensors. One call is one kernel, counted on `edge_weight_grad.launches`.
+Neither input carries a gradient through it: it is itself a backward.
+`edge_weight_grad_plan` reports how the kernel splits a call's work (tiles
+of sink rows, splits of each element's lanes, or a warp a lane); no plan
+changes a result.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.cuda._launch import check_cuda, check_rc, ptr, stream_of
 from gcm_tpu_torch.ops.scatter import edge_mask, gather_nodes
 
-PARTS = 32  # the kernel's warp width
+PARTS = 32  # the order's parts: column f goes to part f % 32
 
 
 def edge_weight_grad_plain(g, x, edges):
@@ -54,13 +63,37 @@ def edge_weight_grad_plain(g, x, edges):
 def _lib() -> ctypes.CDLL:
     lib = _build.load("edge_grad")
     vp, ip = ctypes.c_void_p, ctypes.c_int
-    lib.gcm_edge_weight_grad_f32.argtypes = [vp, vp, vp, vp, ip, ip, ip, ip,
-                                             ip, vp]
-    lib.gcm_edge_weight_grad_f32.restype = ip
+    lib.gcm_edge_weight_grad_f32_plan.argtypes = [vp, vp, vp, vp, ip, ip, ip,
+                                                  ip, ip, ip, ip, vp]
+    lib.gcm_edge_weight_grad_f32_plan.restype = ip
+    lib.gcm_edge_weight_grad_plan.argtypes = [ip, ip, ip, ip, ip, ip, ip,
+                                              ctypes.POINTER(ctypes.c_int)]
+    lib.gcm_edge_weight_grad_plan.restype = ip
     return lib
 
 
-def _launch(g, x, edges):
+PLAN_KEYS = ("rows", "tiles", "splits", "span", "lanes_in_flight", "tiled")
+
+
+def edge_weight_grad_plan(B, N, F, E, device, tile_bytes=0, splits=0):
+    """The kernel's plan for a call (csrc/edge_grad.cu::plan): sink rows a
+    tile, tiles, splits of each element's lanes, lanes a split, lanes a
+    group of eight threads carries at once, and whether the call is tiled
+    (0: a warp a lane). tile_bytes (the most g bytes a tile holds) or
+    splits above 0 asks for the tiled kernel with them, tile_bytes < 0 for
+    a warp a lane; both 0 take the planner's choice."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    rc = _lib().gcm_edge_weight_grad_plan(B, N, F, E, tile_bytes, splits,
+                                          torch.device(device).index or 0,
+                                          out)
+    check_rc("edge_weight_grad_plan", rc)
+    return dict(zip(PLAN_KEYS, out))
+
+
+def _launch(g, x, edges, tile_bytes=0, splits=0):
+    """Launches the kernel; tile_bytes and splits other than 0 replace the
+    planner's choice, as in `edge_weight_grad_plan` (to check and time
+    other plans)."""
     if x.dim() != 3 or edges.dim() != 3 or edges.shape[1] != 2:
         raise ValueError(f"x must be [B, N, F] and edges [B, 2, E], got "
                          f"{tuple(x.shape)} and {tuple(edges.shape)}")
@@ -74,9 +107,9 @@ def _launch(g, x, edges):
     check_cuda("x", x, (B, N, F_), dev)
     check_cuda("edges", edges, (B, 2, E), dev, torch.int32)
     dw = torch.empty((B, E), device=dev, dtype=torch.float32)
-    rc = _lib().gcm_edge_weight_grad_f32(ptr(g), ptr(x), ptr(edges), ptr(dw),
-                                         B, N, F_, E, dev.index,
-                                         stream_of(dev))
+    rc = _lib().gcm_edge_weight_grad_f32_plan(
+        ptr(g), ptr(x), ptr(edges), ptr(dw), B, N, F_, E, tile_bytes, splits,
+        dev.index, stream_of(dev))
     check_rc("edge_weight_grad", rc)
     edge_weight_grad.launches += 1
     return dw

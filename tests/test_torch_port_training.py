@@ -195,11 +195,30 @@ def test_spmm_functions_match_jax_vjp(monkeypatch):
             assert_close(got, wg, msg=f"slots k={k}")
 
 
+def edge_grad_in_order(g, x, edges):
+    """dw in the order csrc/edge_grad.cu states, in float32 numpy: column f
+    adds into part f % 32 in ascending f (one rounding per product and per
+    add), then the 32 parts are added by halves (p + p + 16, then p + 8,
+    p + 4, p + 2, p + 1); indices clamped to N - 1, 0 on sentinel lanes."""
+    N, F = x.shape[1], x.shape[2]
+    b = np.arange(x.shape[0])[:, None]
+    gs = g[b, np.clip(edges[:, 0], 0, N - 1)]
+    xs = x[b, np.clip(edges[:, 1], 0, N - 1)]
+    parts = np.zeros(edges[:, 0].shape + (32,), np.float32)
+    for f in range(F):
+        parts[..., f % 32] += gs[..., f] * xs[..., f]
+    for half in (16, 8, 4, 2, 1):
+        parts = parts[..., :half] + parts[..., half:2 * half]
+    return np.where((edges[:, 0] >= 0) & (edges[:, 1] >= 0), parts[..., 0],
+                    np.float32(0.0))
+
+
 def test_edge_weight_grad_plain_order():
     """The plain edge weight-gradient is sum_f g[sink] x[src] with indices
-    clamped, 0 on sentinel lanes, for widths below, at and above the 32
-    parts it sums in."""
-    for F in (1, 5, 32, 45, 96):
+    clamped, 0 on sentinel lanes (float64 reference), and bitwise the sum in
+    the kernel's stated order, for widths below, at and above the 32 parts
+    it sums in, with sentinels and indices of N or more."""
+    for F in (1, 5, 13, 32, 45, 96, 128, 260):
         x, edges, _, g = spmm_inputs(2, 12, F, 40, seed=F)
         got = edge_weight_grad_plain(torch.from_numpy(g), torch.from_numpy(x),
                                      torch.from_numpy(edges))
@@ -212,6 +231,10 @@ def test_edge_weight_grad_plain_order():
         assert_close(got, want, msg=f"F={F}")
         assert not got[torch.from_numpy((edges[:, 0] < 0)
                                         | (edges[:, 1] < 0))].any()
+        ordered = edge_grad_in_order(g, x, edges)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      ordered.view(np.uint32),
+                                      err_msg=f"F={F}: not the stated order")
 
 
 # -- the train steps against JAX's -------------------------------------------
