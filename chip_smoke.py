@@ -58,7 +58,31 @@ Phases, one JSON line each:
    aggregation="slots": spmm_edge_list or spmm_slots forward,
    spmm_edge_list for dx backward), three Adam steps each against a CPU
    copy (loss and every gradient within 1e-4), exact launches per forward
-   + backward, a finite loss that falls, µs per step and a profiled step.
+   + backward, a finite loss that falls, µs per step and a profiled step;
+   and the learned sparse core (the README sparse core with a
+   deterministic sparse LearnedEdge, 3 edge samples), default and slots
+   (slot_k 3), whose edge weights carry the gradient: each layer's backward
+   also launches edge_weight_grad;
+11. options: the cores' remaining options against CPU copies (beliefs
+   within 1e-4; edge lists, t and num_edges exactly equal):
+   benchmarks/profile_sparse.py's learned core (B=8, F=32, graph 256,
+   2,048 edge slots, max_hops 2, LearnedEdge(window=32, 3 samples)) over
+   T=256 in windows of 32 on the emit path, the grid path (the same edges)
+   and slots (spmm_slots), with the smallest |soft - 1/(1+S)| seen; the
+   README sparse core over [32, 128, 8] with SpatialRadiusEdge(0:2, 0.25),
+   SpatialKNNEdge(0:2, k=4), a SparseEdgeChain, a PositionalEncoding under
+   dones, an aux selector, hop_cap="auto" (the masked path) and the
+   stochastic learned selector (noise handed to both copies; a CUDA
+   Generator bitwise repeatable per seed); a pooled README DenseGCM
+   (validate=True) scanned over [32, 256, 8]; a DenseGCNConv stack at
+   README widths scanned over [32, 64, 8];
+12. gates: the two dispatch choices the JAX package gates on TPU
+   measurements, timed on the card (time_ms: call and device ms, median of
+   5 rounds): the learned selector's emit path against its grid path at
+   benchmarks/gate_hygiene.py's point for N = 128..1,024, and hop_cap
+   compaction against the masked path at benchmarks/hop_compact.py's
+   workload for N = 256..4,096 at F = 128 and 32, each pair with the same
+   beliefs.
 Phase 3 also holds spmm_edge_list and spmm_slots (bitwise: kernel and
 plain version add in the same order; slots also with sources outside their
 windows) against their plain versions beside one torch.sparse.mm call on a
@@ -75,8 +99,9 @@ raw lanes whose sinks leave their windows), a segment spanning two chunks,
 benchmarks/drive_r5c.py's shape and empty edge lists, and, for the
 sink-sorted kernels (csrc/sink_sort.cuh: spmm_edge_list, spmm_onehot_dtype,
 spmm_win, spmm_prefetch), a hot row over two sort passes, sinks descending
-in lane order, eight passes, 4,100 rows in row tiles and one sink block of
-905 or 4,100 rows, beside the same
+in lane order, eight passes, 4,100 rows in row tiles, a plan of exactly
+48 KB of dynamic shared memory and one sink block of 905 or 4,100 rows,
+beside the same
 torch.sparse.mm; the gathers take_rows, take_lanes and take_rows_loop bit
 for bit against theirs (NaN where NaN) at the probe's shapes, at the
 sweep's message gather ([32768, 128] by 524,288 indices; lanes [32768,
@@ -104,7 +129,7 @@ other plans forced through its tile_bytes and splits (each a different
 plan: the other route on either side of its warp-a-lane threshold, other
 tiles and splits at the sweep's point), beside one
 torch.sparse.sampled_addmm.
-Phases 4-10 each run with every launch count set to 0 just before and
+Phases 4-12 each run with every launch count set to 0 just before and
 read just after; each must launch the kernels of its path.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero and prints no result.
@@ -849,8 +874,11 @@ SPMM_CASES = [
     # (case, B, N, F, E, main_path); then the branches of the sink-sorted
     # kernel (csrc/sink_sort.cuh): a hot row over two passes of 8,192 lanes
     # (F = 130: float2 columns, a 2-column tile), sinks descending in lane
-    # order (F = 260: five feature tiles), eight passes, and N = 4,100 in tiles
-    # of 1,024 rows (the largest shared-memory plan)
+    # order (F = 260: five feature tiles), eight passes, N = 4,100 in tiles
+    # of 1,024 rows (the largest shared-memory plan), and a plan of exactly
+    # 48 KB of dynamic shared memory (256 rows, 4,096 lanes: the gate
+    # phase's N = 1,024 window), which with the kernel's static s_part needs
+    # the opt-in above 48 KB
     ("main path", 32, 128, 32, 512, True),
     ("wide", 64, 512, 128, 8192, False),
     ("odd", 3, 12, 13, 37, False),
@@ -859,6 +887,7 @@ SPMM_CASES = [
     ("descending", 4, 512, 260, 4096, False),
     ("many lanes", 2, 512, 128, 65536, False),
     ("large N", 64, 4100, 13, 16384, False),
+    ("48 KB plan", 32, 1024, 32, 4096, False),
 ]
 SLOTS_CASES = [
     # (case, B, N, F, k, hops, main_path). The direct kernel (csrc/
@@ -1249,12 +1278,17 @@ def numpy_params(seed: int, obs: int = 8, hidden: int = 32) -> dict:
             "preprocessor": [linear(obs, hidden)], "edge_selectors": {}}
 
 
-def run_windows(model, xs, taus, state, window):
-    """The whole-window forward over xs [B, T, F] in chained windows."""
+def run_windows(model, xs, taus, state, window, dones=None,
+                generator=None):
+    """The whole-window forward over xs [B, T, F] in chained windows (dones
+    [B, T] cut the same way; a stochastic selector draws from
+    `generator`)."""
     outs = []
     for w0 in range(0, xs.shape[1], window):
+        d = None if dones is None else dones[:, w0:w0 + window]
         out, state, aux = model(xs[:, w0:w0 + window], taus, state,
-                                return_aux=True)
+                                return_aux=True, dones=d,
+                                generator=generator)
         check(not bool(aux["dropped_edges"].any()), "edges were dropped")
         check(not bool(aux.get("slot_overflow", torch.zeros(1)).any()),
               "slot overflow")
@@ -2168,8 +2202,12 @@ def train_phase(card: str, seed: int = 0, B: int = 32, dense_T: int = 160,
     over one window of [32, 128, 8], default (two spmm_edge_list launches
     forward, two for dx backward; its edge weights carry no gradient) and
     aggregation="slots" (two spmm_slots forward, two spmm_edge_list
-    backward)."""
-    from gcm_tpu_torch import (load_jax_params, make_dense_supervised_step,
+    backward); and the learned sparse core (the same with a deterministic
+    sparse LearnedEdge, 3 edge samples), whose edge weights carry the
+    gradient into the selector, so each layer's backward also launches
+    edge_weight_grad: default and slots with slot_k=3."""
+    from gcm_tpu_torch import (SparseLearnedEdge, load_jax_params,
+                               make_dense_supervised_step,
                                make_sparse_supervised_step, readme_dense_gcm,
                                readme_sparse_gcm)
 
@@ -2202,6 +2240,26 @@ def train_phase(card: str, seed: int = 0, B: int = 32, dense_T: int = 160,
             f"sparse {agg}", loaded(readme_sparse_gcm, **kw),
             make_sparse_supervised_step, batch(sparse_T) + [taus], want,
             steps, lr))
+
+    def learned(**kw):
+        """The README sparse core with a deterministic sparse LearnedEdge
+        (3 edge samples): its edge weights carry the gradient."""
+        def make(device):
+            m = loaded(readme_sparse_gcm, **kw)(device)
+            m.edge_selectors = SparseLearnedEdge(
+                obs_dim, deterministic=True, num_edge_samples=3,
+                device=device, generator=torch.Generator().manual_seed(
+                    seed + 5))
+            return m
+        return make
+
+    for agg, kw, want in (
+            ("default", {}, {"spmm_edge_list": 4, "edge_weight_grad": 2}),
+            ("slots", dict(aggregation="slots", slot_k=3),
+             {"spmm_slots": 2, "spmm_edge_list": 2, "edge_weight_grad": 2})):
+        row[f"learned_{agg}"] = dict(T=sparse_T, graph_size=128, **train_run(
+            f"learned {agg}", learned(**kw), make_sparse_supervised_step,
+            batch(sparse_T) + [taus], want, steps, lr))
     emit("train", **row)
 
 
@@ -2222,6 +2280,350 @@ def sweep_phase(card: str) -> None:
           f"{len(out['results'])} rows, expected 15")
     check(out["not_ported"] == [], f"not ported: {out['not_ported']}")
     emit("sweep", card=card, probe=probe, **out)
+
+
+# -- phase 11: the cores' remaining options -------------------------------
+
+def learned_core(device: str, seed: int, **kw):
+    """benchmarks/profile_sparse.py's learned core: SparseGCM over 32-wide
+    observations (no preprocessor), two GraphConv(32, 32) + tanh, graph 256,
+    2,048 edge slots, max_hops 2, a deterministic sparse LearnedEdge with 3
+    edge samples and a window of 32. The weights come from a torch
+    Generator seeded with `seed`, the same on every device."""
+    from gcm_tpu_torch import (GraphConv, SparseGCM, SparseGNN,
+                               SparseLearnedEdge)
+
+    g = torch.Generator().manual_seed(seed)
+    gnn = SparseGNN([GraphConv(32, 32, device=device, generator=g),
+                     torch.tanh,
+                     GraphConv(32, 32, device=device, generator=g),
+                     torch.tanh])
+    sel = SparseLearnedEdge(32, deterministic=True, num_edge_samples=3,
+                            window=32, device=device, generator=g)
+    return SparseGCM(gnn, graph_size=256, max_edges=2048, max_hops=2,
+                     edge_selectors=sel, device=device, **kw)
+
+
+def cutoff_margins(sel):
+    """Wraps sel._soft to record the smallest |soft - 1/(1+S)| over the
+    candidates of each call (a near tie at the cutoff could keep an edge on
+    one device and drop it on another). Returns the list it appends to."""
+    seen, soft_fn = [], sel._soft
+    cutoff = 1.0 / (1 + sel.num_edge_samples)
+
+    def recording(logits, cand, generator, noise):
+        soft, tau = soft_fn(logits, cand, generator, noise)
+        seen.append(float((soft - cutoff).abs()[cand].min()))
+        return soft, tau
+
+    sel._soft = recording
+    return seen
+
+
+def options_learned(row, seed, B=8, T=256, window=32):
+    from gcm_tpu_torch.ops.cuda.spmm_slots import spmm_slots
+
+    xs = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (B, T, 32)).astype(np.float32))
+    xs_c = xs.cuda()
+    full = torch.full((B,), window, dtype=torch.int32)
+    out = {}
+    for label, kw in (("emit", dict(emit=True)), ("grid", dict(emit=False)),
+                      ("slots", dict(emit=True, aggregation="slots",
+                                     slot_k=3))):
+        gpu, cpu = learned_core("cuda", seed, **kw), learned_core("cpu",
+                                                                  seed, **kw)
+        margins = cutoff_margins(gpu.edge_selectors)
+        want, want_state = run_windows(cpu, xs, full,
+                                       cpu.initial_state(B, 32), window)
+        before = spmm_slots.launches
+        got, state = run_windows(gpu, xs_c, full.cuda(),
+                                 gpu.initial_state(B, 32), window)
+        launched = spmm_slots.launches - before
+        err = sparse_close(f"learned core, {label}", got, want, state,
+                           want_state)
+        del gpu.edge_selectors._soft  # the class's method again
+        _, secs = timed(lambda: run_windows(gpu, xs_c, full.cuda(),
+                                            gpu.initial_state(B, 32), window))
+        out[label] = (got, state)
+        row[f"learned_{label}"] = dict(
+            max_abs_err_vs_cpu=err, min_cutoff_margin=min(margins),
+            edges=int(state.num_edges.sum()),
+            timesteps_per_s=B * T / secs, spmm_slots_launches=launched)
+    check(torch.equal(out["emit"][1].edges, out["grid"][1].edges),
+          "learned core: emit and grid paths give different edges")
+    check(torch.equal(out["slots"][1].edges, out["emit"][1].edges),
+          "learned core: slots and default give different edges")
+    err = float((out["slots"][0] - out["emit"][0]).abs().max())
+    check(err <= TOL_MODEL, f"learned core: slots and default differ by "
+          f"{err} > {TOL_MODEL}")
+    row["learned_core"] = dict(
+        B=B, T=T, F=32, graph_size=256, max_edges=2048, max_hops=2,
+        window=window, num_edge_samples=3, emit_vs_grid_edges_equal=True,
+        slots_vs_default_max_abs_err=err)
+    gpu = learned_core("cuda", seed, emit=True)
+    state = run_windows(gpu, xs_c[:, :T // 2], full.cuda(),
+                        gpu.initial_state(B, 32), window)[1]
+    row["learned_core"]["profile_one_window"] = profile_calls(
+        lambda: gpu(xs_c[:, T // 2:T // 2 + window], full.cuda(), state))
+
+
+def readme_with(device, seed, params, **kw):
+    """The README sparse core (readme_sparse_gcm's shapes, `params`'
+    weights) with the selectors and options of kw."""
+    from gcm_tpu_torch import SparseGCM, load_jax_params, readme_sparse_gcm
+
+    base = readme_sparse_gcm(obs_size=8, device=device, seed=seed)
+    load_jax_params(base, params)
+    return SparseGCM(base.gnn, preprocessor=base.preprocessor,
+                     graph_size=128, max_edges=kw.pop("max_edges", 2048),
+                     device=device, **kw)
+
+
+def options_selectors(row, seed, B=32, T=128, window=32):
+    from gcm_tpu_torch import (PositionalEncoding, SparseEdgeChain,
+                               SparseLearnedEdge, SpatialKNNEdge,
+                               SpatialRadiusEdge, TemporalEdge)
+
+    params = numpy_params(seed, 8)
+    rng = np.random.default_rng(seed + 1)
+    xs = torch.from_numpy(rng.standard_normal((B, T, 8)).astype(np.float32))
+    xs[..., :2] *= 0.3  # positions where the radius cuts
+    dones = torch.from_numpy(rng.random((B, T)) < 0.03)
+    full = torch.full((B,), window, dtype=torch.int32)
+
+    def pe(device):
+        return PositionalEncoding(256, "add", feat_dim=32, device=device)
+
+    cases = {
+        "radius": lambda d: dict(edge_selectors=SpatialRadiusEdge(
+            slice(0, 2), 0.25)),
+        "knn": lambda d: dict(edge_selectors=SpatialKNNEdge(slice(0, 2),
+                                                            k=4)),
+        "chain": lambda d: dict(edge_selectors=SparseEdgeChain([
+            TemporalEdge([1]), SpatialRadiusEdge(slice(0, 2), 0.25)])),
+        "pe_dones": lambda d: dict(edge_selectors=TemporalEdge([1]),
+                                   positional_encoder=pe(d)),
+        "aux": lambda d: dict(edge_selectors=TemporalEdge([1]),
+                              aux_edge_selectors=TemporalEdge([2, 3]),
+                              positional_encoder=pe(d)),
+        "hop_cap_auto": lambda d: dict(edge_selectors=TemporalEdge([1]),
+                                       max_hops=2, hop_cap="auto"),
+    }
+    for name, make in cases.items():
+        gpu = readme_with("cuda", seed, params, **make("cuda"))
+        cpu = readme_with("cpu", seed, params, **make("cpu"))
+        d = dones if name == "pe_dones" else None
+        want, want_state = run_windows(cpu, xs, full,
+                                       cpu.initial_state(B, 8), window, d)
+        got, state = run_windows(gpu, xs.cuda(), full.cuda(),
+                                 gpu.initial_state(B, 8), window,
+                                 None if d is None else d.cuda())
+        err = sparse_close(name, got, want, state, want_state)
+        row[name] = dict(max_abs_err_vs_cpu=err,
+                         edges=int(state.num_edges.sum()))
+        check(int(state.num_edges.min()) > 0, f"{name}: no edges")
+    # hop_cap="auto" keeps the masked path on the card (no compaction, so
+    # no hop_overflow count), as the gate phase's times say it should
+    auto = readme_with("cuda", seed, params, edge_selectors=TemporalEdge([1]),
+                       max_hops=2, hop_cap="auto")
+    aux = auto(xs[:, :window].cuda(), full.cuda(), auto.initial_state(B, 8),
+               return_aux=True)[2]
+    check("hop_overflow" not in aux, "hop_cap='auto' compacted")
+    row["hop_cap_auto"]["path"] = "masked"
+
+    # the stochastic learned selector: noise from a CPU generator handed to
+    # both copies (grid path: logits [B, t, 128]); on the card, a Generator
+    # gives the same beliefs and edges bitwise for one seed
+    def stochastic(device):
+        return readme_with(device, seed, params, edge_selectors=(
+            SparseLearnedEdge(8, num_edge_samples=3, device=device,
+                              generator=torch.Generator().manual_seed(seed))))
+
+    gpu, cpu = stochastic("cuda"), stochastic("cpu")
+    from gcm_tpu_torch.utils.ste import sample_gumbel
+
+    noise = sample_gumbel((B, window, 128), torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        want, want_state = cpu(xs[:, :window], full, cpu.initial_state(B, 8),
+                               noise={"edge_selectors": noise})
+        got, state = gpu(xs[:, :window].cuda(), full.cuda(),
+                         gpu.initial_state(B, 8),
+                         noise={"edge_selectors": noise.cuda()})
+        err = sparse_close("stochastic learned", got, want, state,
+                           want_state)
+        runs = []
+        for s in (11, 11, 12):
+            g = torch.Generator(device="cuda").manual_seed(s)
+            out, state = run_windows(gpu, xs.cuda(), full.cuda(),
+                                     gpu.initial_state(B, 8), window,
+                                     generator=g)
+            runs.append((out, state.edges))
+    check(all(torch.equal(a, b) for a, b in zip(runs[0], runs[1])),
+          "stochastic learned: one seed is not bitwise repeatable")
+    check(not torch.equal(runs[0][1], runs[2][1]),
+          "stochastic learned: two seeds give the same edges")
+    row["stochastic_learned"] = dict(max_abs_err_vs_cpu=err,
+                                     repeatable_per_seed=True)
+
+
+def options_dense(row, seed, B=32, T=256, gcn_T=64):
+    from gcm_tpu_torch import (MLP, DenseGCM, DenseGCNConv, DenseGNN, Linear,
+                               TemporalBackedge, readme_dense_gcm)
+
+    xs = torch.from_numpy(np.random.default_rng(seed + 2).standard_normal(
+        (B, T, 8)).astype(np.float32))
+
+    def pooled(device):
+        base = readme_dense_gcm(obs_size=8, device=device, seed=seed)
+        return DenseGCM(base.gnn, preprocessor=base.preprocessor,
+                        edge_selectors=base.edge_selectors, graph_size=128,
+                        pooled=True, validate=True, device=device)
+
+    def gcn(device):
+        g = torch.Generator().manual_seed(seed)
+        gnn = DenseGNN([DenseGCNConv(32, 32, device=device, generator=g),
+                        torch.tanh,
+                        DenseGCNConv(32, 32, device=device, generator=g),
+                        torch.tanh])
+        return DenseGCM(gnn, preprocessor=MLP([Linear(8, 32, device=device,
+                                                      generator=g)]),
+                        edge_selectors=TemporalBackedge([1]), graph_size=128,
+                        device=device)
+
+    for name, make, steps in (("pooled", pooled, T), ("gcn_conv", gcn,
+                                                      gcn_T)):
+        gpu, cpu = make("cuda"), make("cpu")
+        with torch.no_grad():
+            want, want_state = cpu.scan(xs[:, :steps], cpu.initial_state(B, 8))
+            got, state = gpu.scan(xs[:, :steps].cuda(),
+                                  gpu.initial_state(B, 8))
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+        err = float((got.cpu() - want).abs().max())
+        check(err <= TOL_MODEL, f"{name}: differs from the CPU copy by {err}")
+        check(torch.equal(state.adj.cpu(), want_state.adj),
+              f"{name}: adjacency differs from the CPU copy")
+        row[name] = dict(T=steps, shape=list(got.shape),
+                         max_abs_err_vs_cpu=err)
+    check(row["pooled"]["shape"] == [B, T, 128, 32], "pooled: shape")
+
+
+def options_phase(card: str, seed: int = 0):
+    """The options of both cores the earlier phases do not drive, each
+    against a CPU copy with the same weights (beliefs within 1e-4; edge
+    lists, t and num_edges exactly equal): profile_sparse's learned core in
+    windows of 32 (emit, grid, slots); the README sparse core with the
+    spatial selectors, a chain, a positional encoder under dones, an aux
+    selector, hop_cap="auto" and the stochastic learned selector (noise
+    handed to both; a Generator bitwise repeatable per seed on the card);
+    a pooled README DenseGCM (validate=True) scanned over [32, 256, 8]; a
+    DenseGCNConv stack at README widths."""
+    row = dict(card=card)
+    with torch.no_grad():
+        options_learned(row, seed)
+        options_selectors(row, seed)
+        options_dense(row, seed)
+    emit("options", **row)
+
+
+# -- phase 12: the dispatch gates ---------------------------------------------
+
+def filled_state(model, B, F, T0, hops, seed):
+    """A state whose first T0 rows hold random nodes joined by the temporal
+    edges of `hops`, as a run of that selector would leave them."""
+    from gcm_tpu_torch import sparse_state_from_numpy
+
+    N, E = model.graph_size, model.max_edges
+    rng = np.random.default_rng(seed)
+    nodes = np.zeros((B, N, F), np.float32)
+    nodes[:, :T0] = rng.standard_normal((B, T0, F))
+    pairs = [(i, i - h) for i in range(T0) for h in sorted(hops,
+                                                           reverse=True)
+             if i - h >= 0]
+    edges = np.full((B, 2, E), -1, np.int32)
+    edges[:, :, :len(pairs)] = np.array(pairs, np.int32).T[None]
+    weights = np.zeros((B, E), np.float32)
+    weights[:, :len(pairs)] = 1.0
+    return sparse_state_from_numpy(
+        (nodes, edges, weights, np.full(B, T0, np.int32),
+         np.full(B, len(pairs), np.int32)), model.device)
+
+
+def gate_phase(card: str, seed: int = 0):
+    """The two dispatch gates on the card, each path's forward window timed
+    by time_ms (CUDA events, median of 5 rounds of 10 calls: call_ms what
+    a caller waits, device_ms the device's work): the learned selector's
+    emit path against its grid path at benchmarks/gate_hygiene.py's point
+    (B=32, obs 8, hidden 32, windows of 32, window 16) for N in 128..1024;
+    hop_cap compaction (cap 32) against the masked max_hops path at
+    benchmarks/hop_compact.py's workload (B=16, tau 8, two GraphConv(F, F)
+    + tanh, max_hops 2, TemporalEdge([1, 2])) for N in 256..4096 at F = 128
+    and 32. Each pair also gives the same beliefs (1e-4)."""
+    from gcm_tpu_torch import (MLP, GraphConv, Linear, SparseGCM, SparseGNN,
+                               SparseLearnedEdge, TemporalEdge)
+
+    row = dict(card=card, emit=[], hop_cap=[])
+    rng = np.random.default_rng(seed)
+
+    def gnn(F, g):
+        return SparseGNN([GraphConv(F, F, device="cuda", generator=g),
+                          torch.tanh,
+                          GraphConv(F, F, device="cuda", generator=g),
+                          torch.tanh])
+
+    B, Tw = 32, 32
+    x = torch.from_numpy(rng.standard_normal((B, Tw, 8)).astype(np.float32)
+                         ).cuda()
+    taus = torch.full((B,), Tw, dtype=torch.int32).cuda()
+    for N in (128, 256, 512, 1024):
+        times, outs = {}, {}
+        for emit_on in (True, False):
+            g = torch.Generator().manual_seed(seed)
+            model = SparseGCM(
+                gnn(32, g), preprocessor=MLP([Linear(8, 32, device="cuda",
+                                                     generator=g)]),
+                edge_selectors=SparseLearnedEdge(
+                    8, deterministic=True, window=16, device="cuda",
+                    generator=g),
+                graph_size=N, max_edges=4 * N, emit=emit_on, device="cuda")
+            state = filled_state(model, B, 8, N - 2 * Tw, (1,), seed)
+            with torch.no_grad():
+                outs[emit_on] = model(x, taus, state)[0]
+                times[emit_on] = time_ms(lambda: model(x, taus, state),
+                                         reps=10)
+        err = float((outs[True] - outs[False]).abs().max())
+        check(err <= TOL_MODEL, f"emit gate N={N}: paths differ by {err}")
+        row["emit"].append(dict(
+            N=N, window_band=min(16 + Tw, N), emit_call_ms=times[True][1],
+            grid_call_ms=times[False][1], emit_device_ms=times[True][0],
+            grid_device_ms=times[False][0], max_abs_err=err))
+
+    B, tau, cap = 16, 8, 32
+    taus = torch.full((B,), tau, dtype=torch.int32).cuda()
+    for F in (128, 32):
+        x = torch.from_numpy(rng.standard_normal((B, tau, F)).astype(
+            np.float32)).cuda()
+        for N in (256, 1024, 4096):
+            times, outs = {}, {}
+            for hop_cap in (cap, None):
+                g = torch.Generator().manual_seed(seed)
+                model = SparseGCM(gnn(F, g), edge_selectors=TemporalEdge(
+                    [1, 2]), graph_size=N, max_edges=4 * N, max_hops=2,
+                    hop_cap=hop_cap, device="cuda")
+                state = filled_state(model, B, F, N // 2, (1, 2), seed)
+                with torch.no_grad():
+                    outs[hop_cap] = model(x, taus, state)[0]
+                    times[hop_cap] = time_ms(lambda: model(x, taus, state),
+                                             reps=10)
+            err = float((outs[cap] - outs[None]).abs().max())
+            check(err <= TOL_MODEL, f"hop gate N={N} F={F}: paths differ "
+                  f"by {err}")
+            row["hop_cap"].append(dict(
+                N=N, F=F, cap=cap, NF=N * F, compact_call_ms=times[cap][1],
+                masked_call_ms=times[None][1],
+                compact_device_ms=times[cap][0],
+                masked_device_ms=times[None][0], max_abs_err=err))
+    emit("gates", **row)
 
 
 # -- main ---------------------------------------------------------------------
@@ -2394,7 +2796,9 @@ def main() -> int:
         (gradient_phase, ("spmm_pairs", "spmm_seg", "spmm_edge_list",
                           "edge_weight_grad")),
         (train_phase, ("fused_dense_gnn", "fused_dense_gnn_bwd",
-                       "spmm_edge_list", "spmm_slots")),
+                       "spmm_edge_list", "spmm_slots", "edge_weight_grad")),
+        (options_phase, ("fused_dense_gnn", "spmm_edge_list", "spmm_slots")),
+        (gate_phase, ("spmm_edge_list",)),
     ]
     launches = dict.fromkeys(wrappers, 0)
     for phase, kernels in paths:

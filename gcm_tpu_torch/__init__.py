@@ -19,6 +19,11 @@ from gcm_tpu_torch.edges.dense import DenseEdge
 from gcm_tpu_torch.edges.distance import (CosineEdge, Distance, EuclideanEdge,
                                           SpatialEdge)
 from gcm_tpu_torch.edges.learned import LearnedEdge, default_edge_network
+from gcm_tpu_torch.edges.sparse_learned import LearnedEdge as \
+    SparseLearnedEdge
+from gcm_tpu_torch.edges.sparse_spatial import (SparseEdgeChain,
+                                                SpatialKNNEdge,
+                                                SpatialRadiusEdge)
 from gcm_tpu_torch.edges.sparse_temporal import TemporalEdge
 from gcm_tpu_torch.edges.temporal import TemporalBackedge
 from gcm_tpu_torch.models.converters import dense_to_sparse, sparse_to_dense
@@ -28,7 +33,8 @@ from gcm_tpu_torch.models.positional import (PositionalEncoding,
                                              sincos_table)
 from gcm_tpu_torch.models.presets import readme_dense_gcm, readme_sparse_gcm
 from gcm_tpu_torch.models.sparse_gcm import SparseGCM
-from gcm_tpu_torch.nn.dense_conv import DenseGNN, DenseGraphConv
+from gcm_tpu_torch.nn.dense_conv import (DenseGCNConv, DenseGNN,
+                                         DenseGraphConv)
 from gcm_tpu_torch.nn.module import MLP, LayerNorm, Linear
 from gcm_tpu_torch.nn.sparse_conv import GCNConv, GraphConv, SparseGNN
 from gcm_tpu_torch.ops.coalesce import coalesce_edges
@@ -49,19 +55,22 @@ from gcm_tpu_torch.weights import (load_jax_params, named_from_jax,
                                    state_to_numpy)
 
 __all__ = [
-    "CosineEdge", "DenseEdge", "DenseGCM", "DenseGNN", "DenseGraphConv",
-    "DenseGraphState", "Distance", "EdgeChain", "EuclideanEdge", "GCNConv",
-    "GraphConv", "LayerNorm", "LearnedEdge", "Linear", "MLP",
-    "PositionalEncoding", "RelativePositionalEncoding", "SessionServer",
-    "SparseGCM", "SparseGNN", "SparseGraphState", "SpatialEdge",
-    "TemporalBackedge", "TemporalEdge", "bucket_sink_slots",
-    "check_slot_overflow", "coalesce_edges", "default_edge_network",
-    "dense_fused_supported", "dense_initial_state", "dense_to_sparse",
-    "fused_dense_gnn", "fused_dense_graph_conv", "load_jax_params",
+    "CosineEdge", "DenseEdge", "DenseGCM", "DenseGCNConv", "DenseGNN",
+    "DenseGraphConv", "DenseGraphState", "Distance", "EdgeChain",
+    "EuclideanEdge", "GCNConv", "GraphConv", "LayerNorm", "LearnedEdge",
+    "Linear", "MLP", "PositionalEncoding", "RelativePositionalEncoding",
+    "SessionServer", "SparseEdgeChain", "SparseGCM", "SparseGNN",
+    "SparseGraphState", "SparseLearnedEdge", "SpatialEdge",
+    "SpatialKNNEdge", "SpatialRadiusEdge", "TemporalBackedge",
+    "TemporalEdge", "bucket_sink_slots", "check_slot_overflow",
+    "coalesce_edges", "default_edge_network", "dense_fused_supported",
+    "dense_initial_state", "dense_to_sparse", "fused_dense_gnn",
+    "fused_dense_graph_conv", "load_jax_params",
     "make_dense_supervised_step", "make_sparse_supervised_step",
-    "named_from_jax", "pack_hidden", "readme_dense_gcm", "readme_sparse_gcm", "reset_where",
-    "resolve_device", "sddmm_threshold_row", "sddmm_threshold_row_current",
-    "sincos_table", "sparse_initial_state", "sparse_state_from_numpy",
+    "named_from_jax", "pack_hidden", "readme_dense_gcm",
+    "readme_sparse_gcm", "reset_where", "resolve_device",
+    "sddmm_threshold_row", "sddmm_threshold_row_current", "sincos_table",
+    "sparse_initial_state", "sparse_state_from_numpy",
     "sparse_state_to_numpy", "sparse_to_dense", "spmm_edge_list",
     "spmm_slots", "state_from_numpy", "state_to_numpy", "unpack_hidden",
 ]

@@ -345,15 +345,23 @@ inline int with_width(const Plan& p, Fn&& f) {
 
 // Launches k(args..., p) on a grid of (blocks / B, B) blocks of kThreads,
 // with the plan's dynamic shared memory (allowed above the default 48 KB
-// where it needs more); returns a cudaError_t code (0 on success).
+// where it and the kernel's static shared memory need more: a plan of
+// exactly 48 KB, e.g. 256 rows and 4,096 lanes, plus the kernels' s_part
+// would otherwise fail to launch); returns a cudaError_t code (0 on
+// success).
 template <typename Kernel, typename... Args>
 inline int launch(Kernel k, const Plan& p, int B, cudaStream_t stream,
                   Args... args) {
   if (p.blocks / B > size_t(INT_MAX)) return int(cudaErrorInvalidValue);
-  if (p.smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, int(p.smem));
+  if (p.smem > 32 * 1024) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, k);
     if (err != cudaSuccess) return int(err);
+    if (p.smem + attr.sharedSizeBytes > 48 * 1024) {
+      err = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize, int(p.smem));
+      if (err != cudaSuccess) return int(err);
+    }
   }
   k<<<dim3(unsigned(p.blocks / B), B), kThreads, p.smem, stream>>>(args...,
                                                                      p);

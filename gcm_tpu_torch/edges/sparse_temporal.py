@@ -3,11 +3,14 @@ gcm_tpu/edges/sparse_temporal.py): connect each newly inserted node
 T[b] + i, i < taus[b], to the node `hop` steps before it, for each hop.
 Edges need source >= 0 and sink > 0.
 
-Sparse selector API: `selector(nodes, T, taus, t, seg_mask=None)` returns
-(grid [B, t, N], aux), where grid[b, i, j] = w means an edge sink T[b] + i
-<- source j of weight w (0: no edge). A grid has one lane per (sink,
-source) pair, so a call never emits a duplicate edge. `emit_edges` gives
-the same edges without the grid.
+Sparse selector API: `selector(nodes, T, taus, t, seg_mask=None,
+generator=None, noise=None)` returns (grid [B, t, N], aux), where
+grid[b, i, j] = w means an edge sink T[b] + i <- source j of weight w (0:
+no edge). A grid has one lane per (sink, source) pair, so a call never
+emits a duplicate edge. `emit_edges` gives the same edges without the
+grid. A stochastic selector draws its Gumbel noise from `generator`, or
+takes it as `noise` (the shape of its logits); the deterministic ones take
+neither.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ class TemporalEdge(nn.Module):
         came from this selector)."""
         return max(self.hops) if self.hops else 0
 
-    def forward(self, nodes, T, taus, t: int, seg_mask=None):
+    def forward(self, nodes, T, taus, t: int, seg_mask=None, generator=None,
+                noise=None):
         B, N, _ = nodes.shape
         i = torch.arange(t, device=nodes.device)[None, :]
         sink = T[:, None] + i                                  # [B, t]
@@ -47,7 +51,8 @@ class TemporalEdge(nn.Module):
             grid = grid * seg_mask.to(grid.dtype)
         return grid, {}
 
-    def emit_edges(self, nodes, T, taus, t: int, seg_mask=None):
+    def emit_edges(self, nodes, T, taus, t: int, seg_mask=None,
+                   generator=None, noise=None):
         """The grid-free path: the K = t * len(hops) edges directly, in the
         grid path's order (per new node i, sources ascending, i.e. hops
         descending). Returns (new_edges [B, 2, K] int32, weights [B, K],

@@ -8,7 +8,8 @@ gcm_tpu/models/dense_gcm.py). One step:
 5. aux edge selectors on the preprocessed (optionally positionally
    encoded) nodes,
 6. the GNN over the dense graph,
-7. belief = features of the just-inserted node,
+7. belief = features of the just-inserted node (with `pooled`, the GNN's
+   whole output),
 8. num_nodes += 1.
 
 The node buffer stores raw observations [B, N, obs]; the preprocessor runs
@@ -40,6 +41,7 @@ from gcm_tpu_torch.edges.distance import Distance
 from gcm_tpu_torch.edges.learned import LearnedEdge
 from gcm_tpu_torch.edges.temporal import TemporalBackedge
 from gcm_tpu_torch.utils.ste import noise_for, noise_shape, ste
+from gcm_tpu_torch.utils.validation import check_dense_inputs
 
 
 class _RowColAcc:
@@ -134,11 +136,9 @@ class DenseGCM(nn.Module):
     def __init__(self, gnn, preprocessor=None, edge_selectors=None,
                  aux_edge_selectors=None, graph_size: int = 128,
                  pooled: bool = False, positional_encoder=None,
-                 edge_weights: bool = False, fused_step: bool = True, *,
-                 device=None):
+                 edge_weights: bool = False, validate: bool = False,
+                 fused_step: bool = True, *, device=None):
         super().__init__()
-        if pooled:
-            raise NotImplementedError("pooled beliefs are not ported yet")
         self.device = resolve_device(device)
 
         def to_device(m):
@@ -150,7 +150,9 @@ class DenseGCM(nn.Module):
         self.aux_edge_selectors = to_device(aux_edge_selectors)
         self.positional_encoder = to_device(positional_encoder)
         self.graph_size = graph_size
+        self.pooled = pooled
         self.edge_weights = edge_weights
+        self.validate = validate
         self.fused_step = fused_step
 
     def initial_state(self, B: int, feat: int,
@@ -172,9 +174,13 @@ class DenseGCM(nn.Module):
 
     def forward(self, x: torch.Tensor, state: DenseGraphState,
                 generator: torch.Generator | None = None, noise=None):
-        """x [B, obs] -> (belief [B, F_out], new state). Stochastic
-        selectors draw their noise from `generator`, or take it from
-        `noise` (a `step_noise` dict)."""
+        """x [B, obs] -> (belief [B, F_out], new state); with pooled=True
+        the belief is the GNN's whole output (e.g. [B, N, F_out]).
+        Stochastic selectors draw their noise from `generator`, or take it
+        from `noise` (a `step_noise` dict). validate=True checks the shapes
+        first (raises ShapeError)."""
+        if self.validate:
+            check_dense_inputs(x, state, self.graph_size)
         if noise is None:
             noise = self.step_noise(x.shape[0], generator)
         if self.fused_step and dense_fused_supported(self):
@@ -198,7 +204,8 @@ class DenseGCM(nn.Module):
                 enc, adj, weights, num_nodes,
                 noise=noise["aux_edge_selectors"])
         node_feats = self.gnn(dirty_nodes, adj, weights)
-        mx = node_feats[torch.arange(B, device=x.device), num_nodes.long()]
+        mx = node_feats if self.pooled else \
+            node_feats[torch.arange(B, device=x.device), num_nodes.long()]
         return mx, DenseGraphState(nodes, adj, weights, num_nodes + 1)
 
     def _call_fused(self, x, state: DenseGraphState,
@@ -248,7 +255,7 @@ class DenseGCM(nn.Module):
                 om, F.pad(weights[:, 1:, 1:], (0, 1, 0, 1)), weights)
 
         node_feats = self.gnn(dirty_nodes, adj, weights)
-        mx = node_feats[b_idx, num2.long()]
+        mx = node_feats if self.pooled else node_feats[b_idx, num2.long()]
         return mx, DenseGraphState(nodes, adj, weights, num2 + 1)
 
     def scan(self, xs: torch.Tensor, state: DenseGraphState, dones=None,

@@ -5,24 +5,38 @@ One call takes a zero-padded window x [B, t, F] with per-batch valid
 lengths taus [B] and runs it in one pass:
 
 1. insert the taus[b] new nodes at rows T[b]..T[b]+taus[b]-1 (T = state.t);
-2. the edge selector's new edges (grid-free `emit_edges` where the selector
-   has it, else its [B, t, N] grid compacted), with weights set to 1.0 by
-   `grad_preserving_ones`, appended at each batch's cursor;
-3. the preprocessor over all N rows;
-4. optionally the `max_hops` reachability mask, and with an integer
-   `hop_cap` the gather-compaction of the reachable subgraph;
-5. the GNN over the padded edge list: spmm_edge_list, or spmm_slots with
+2. the edge selector's new edges (grid-free `emit_edges` where the
+   selector has it and supports it and, under emit="auto", its
+   `emit_profitable` gate says so; else its [B, t, N] grid compacted),
+   with weights set to 1.0 by `grad_preserving_ones`, appended at each
+   batch's cursor;
+3. the preprocessor over all N rows, then the positional encoder (under
+   `dones`, at within-episode positions);
+4. the aux edge selectors on those encoded nodes (grid path; their aux
+   keys prefixed "aux/");
+5. optionally the `max_hops` reachability mask, and with an integer
+   `hop_cap` the gather-compaction of the reachable subgraph
+   (hop_cap="auto" keeps the masked path);
+6. the GNN over the padded edge list: spmm_edge_list, or spmm_slots with
    aggregation="slots";
-6. beliefs gathered at the new rows, zero past taus[b].
+7. beliefs gathered at the new rows, zero past taus[b].
 
-The state never wraps around: writes past graph_size or max_edges are
-dropped and counted (aux["dropped_edges"]); `check_overflow` raises where
-the reference would. `forward` and `scan` are differentiable in the
-parameters and x (make_sparse_supervised_step trains through `forward`);
-the guards wait on the host and stay outside the graph.
+Stochastic selectors draw their Gumbel noise from `generator=`, or take it
+from `noise=`, a dict {"edge_selectors": ..., "aux_edge_selectors": ...}
+of each selector's noise (its logits' shape; a list for a chain). The
+state never wraps around: writes past graph_size or max_edges are dropped
+and counted (aux["dropped_edges"]); `check_overflow` raises where the
+reference would. `forward` and `scan` are differentiable in the parameters
+and x (make_sparse_supervised_step trains through `forward`; a learned
+selector's edge weights carry the gradient into its scorer); the guards
+wait on the host and stay outside the graph.
 
-Not ported, and raising NotImplementedError: hop_cap="auto" (its gate was
-measured on a TPU), positional encoders and aux edge selectors.
+The JAX package gates two choices on measurements taken on a TPU: the
+emit path against the grid path, and hop_cap="auto"'s compaction against
+the masked path. Both were measured again on the H100 (chip_smoke.py's
+gate phase, PERF.md): the emit gate holds a factor measured there
+(edges/sparse_learned.py); compaction was slower than the masked path at
+every point, so that gate went and hop_cap="auto" keeps the masked path.
 """
 
 from __future__ import annotations
@@ -56,22 +70,15 @@ class SparseGCM(nn.Module):
     def __init__(self, gnn, preprocessor=None, edge_selectors=None,
                  aux_edge_selectors=None, graph_size: int = 128,
                  max_edges: int = 1024, max_hops: int | None = None,
-                 hop_cap: int | None = None, positional_encoder=None,
+                 hop_cap: int | str | None = None, positional_encoder=None,
                  validate: bool = False, aggregation: str = "auto",
                  slot_k: int | None = None, emit: str | bool = "auto", *,
                  device=None):
         super().__init__()
-        if aux_edge_selectors is not None:
-            raise NotImplementedError("aux edge selectors are not ported yet")
-        if positional_encoder is not None:
-            raise NotImplementedError("positional encoders are not ported yet")
-        if hop_cap == "auto":
-            raise NotImplementedError(
-                "hop_cap='auto' is not ported: its gate was measured on a "
-                "TPU; pass an integer cap")
         if hop_cap is not None:
-            if not isinstance(hop_cap, int):
-                raise ValueError(f"hop_cap must be an int, got {hop_cap!r}")
+            if hop_cap != "auto" and not isinstance(hop_cap, int):
+                raise ValueError(f"hop_cap must be an int or 'auto', got "
+                                 f"{hop_cap!r}")
             if max_hops is None:
                 raise ValueError("hop_cap requires max_hops")
             if aggregation == "slots":
@@ -90,14 +97,20 @@ class SparseGCM(nn.Module):
         if emit not in ("auto", True, False):
             raise ValueError(f"emit must be 'auto', True or False: {emit!r}")
         if (emit is True and edge_selectors is not None
-                and not hasattr(edge_selectors, "emit_edges")):
+                and not (hasattr(edge_selectors, "emit_edges")
+                         and getattr(edge_selectors, "supports_emit", True))):
             raise ValueError(
                 "emit=True but the edge selector has no grid-free path")
         self.device = resolve_device(device)
-        self.gnn = gnn.to(self.device)
-        self.preprocessor = (None if preprocessor is None
-                             else preprocessor.to(self.device))
-        self.edge_selectors = edge_selectors
+
+        def to_device(m):
+            return m.to(self.device) if isinstance(m, nn.Module) else m
+
+        self.gnn = to_device(gnn)
+        self.preprocessor = to_device(preprocessor)
+        self.edge_selectors = to_device(edge_selectors)
+        self.aux_edge_selectors = to_device(aux_edge_selectors)
+        self.positional_encoder = to_device(positional_encoder)
         self.graph_size = graph_size
         self.max_edges = max_edges
         self.max_hops = max_hops
@@ -113,12 +126,25 @@ class SparseGCM(nn.Module):
         return sparse_initial_state(B, self.graph_size, feat, self.max_edges,
                                     dtype=dtype, device=self.device)
 
+    def _use_emit(self, t: int, N: int) -> bool:
+        """The grid-free path wherever the selector has it and supports it,
+        unless emit=False; under "auto" also only where the selector's
+        `emit_profitable(t, N)` gate, if it has one, says so."""
+        sel = self.edge_selectors
+        if (self.emit is False or not hasattr(sel, "emit_edges")
+                or not getattr(sel, "supports_emit", True)):
+            return False
+        gate = getattr(sel, "emit_profitable", None)
+        return self.emit is True or gate is None or gate(t, N)
+
     def forward(self, x, taus, state: SparseGraphState,
-                return_aux: bool = False, dones=None):
+                return_aux: bool = False, dones=None,
+                generator: torch.Generator | None = None, noise=None):
         """x [B, t, F] zero-padded window, taus [B] valid lengths; dones
         [B, t] optional episode ends inside the window, after which no edge
-        reaches back across the boundary. Returns (beliefs [B, t, F_out],
-        new state[, aux])."""
+        reaches back across the boundary and positions restart. Stochastic
+        selectors draw from `generator` or take `noise` (see the module
+        docstring). Returns (beliefs [B, t, F_out], new state[, aux])."""
         if self.validate:
             check_sparse_inputs(x, taus, state, self.graph_size,
                                 self.max_edges)
@@ -126,6 +152,7 @@ class SparseGCM(nn.Module):
         N = self.graph_size
         nodes, edges, weights, T, num_edges = state
         dev = x.device
+        noise = noise or {}
         aux = {}
 
         i = torch.arange(t, device=dev)[None, :]
@@ -134,7 +161,7 @@ class SparseGCM(nn.Module):
         nodes = rows_set(nodes, rows, x, new_mask)
         dirty_nodes = nodes
 
-        seg_mask = None
+        seg_mask = positions = None
         if dones is not None:
             d = dones.to(torch.int32)
             # segment of each new node: the dones strictly before it; rows
@@ -143,22 +170,32 @@ class SparseGCM(nn.Module):
             rowseg = rows_set(torch.zeros((B, N), dtype=torch.int32,
                                           device=dev), rows, seg_new, new_mask)
             seg_mask = seg_new[:, :, None] == rowseg[:, None, :]  # [B, t, N]
+            # within-episode position of each new node: steps since the
+            # last start in the window, or T + i in the carried-over episode
+            starts = torch.cat([torch.zeros((B, 1), dtype=torch.int32,
+                                            device=dev), d[:, :-1]], dim=1)
+            last_start = torch.cummax(torch.where(starts > 0, i, -1),
+                                      dim=1).values
+            pos_new = torch.where(last_start >= 0, i - last_start,
+                                  T[:, None] + i).to(torch.int32)
+            positions = rows_set(
+                torch.arange(N, dtype=torch.int32, device=dev)[None, :]
+                .expand(B, N).contiguous(), rows, pos_new, new_mask)
+        kw = {} if seg_mask is None else {"seg_mask": seg_mask}
 
         dropped_total = torch.zeros((B,), dtype=torch.int32, device=dev)
         sel = self.edge_selectors
         if sel is not None:
-            # emit="auto" takes the grid-free path wherever the selector
-            # has one (no ported selector has a measured gate against it)
-            use_emit = self.emit is not False and hasattr(sel, "emit_edges")
-            kw = {} if seg_mask is None else {"seg_mask": seg_mask}
-            if use_emit:
+            sel_kw = dict(kw, generator=generator,
+                          noise=noise.get("edge_selectors"))
+            if self._use_emit(t, N):
                 new_e, vals, valid, sel_aux = sel.emit_edges(
-                    dirty_nodes, T, taus, t, **kw)
+                    dirty_nodes, T, taus, t, **sel_kw)
                 aux.update(sel_aux)
                 edges, weights, num_edges, dropped = self._append_emitted(
                     edges, weights, num_edges, new_e, vals, valid)
             else:
-                grid, sel_aux = sel(dirty_nodes, T, taus, t, **kw)
+                grid, sel_aux = sel(dirty_nodes, T, taus, t, **sel_kw)
                 aux.update(sel_aux)
                 edges, weights, num_edges, dropped = self._append_grid(
                     edges, weights, num_edges, grid, rows)
@@ -166,16 +203,31 @@ class SparseGCM(nn.Module):
 
         if self.preprocessor is not None:
             dirty_nodes = self.preprocessor(dirty_nodes)
+        if self.positional_encoder is not None:
+            pe_kw = {} if positions is None else {"positions": positions}
+            dirty_nodes = self.positional_encoder(dirty_nodes, T + taus,
+                                                  **pe_kw)
+        if self.aux_edge_selectors is not None:
+            grid, sel_aux = self.aux_edge_selectors(
+                dirty_nodes, T, taus, t, generator=generator,
+                noise=noise.get("aux_edge_selectors"), **kw)
+            aux.update({f"aux/{k}": v for k, v in sel_aux.items()})
+            edges, weights, num_edges, dropped = self._append_grid(
+                edges, weights, num_edges, grid, rows)
+            dropped_total = dropped_total + dropped
 
         gnn_edges, gnn_weights, gnn_nodes = edges, weights, dirty_nodes
         out_rows, out_n = rows, N
         if self.max_hops is not None:
             gnn_edges = self._k_hop_edge_mask(edges, new_mask, rows, N)
-            if self.hop_cap is not None:
+            # hop_cap="auto" takes the masked path: on the card compaction
+            # was slower at every point of chip_smoke.py's gate phase
+            cap = None if self.hop_cap == "auto" else self.hop_cap
+            if cap is not None:
                 (gnn_nodes, gnn_edges, out_rows,
                  aux["hop_overflow"]) = self._compact_reachable(
-                    dirty_nodes, gnn_edges, new_mask, rows, t, self.hop_cap)
-                out_n = self.hop_cap
+                    dirty_nodes, gnn_edges, new_mask, rows, t, cap)
+                out_n = cap
         if self.aggregation == "slots":
             srcs, ws, counts = bucket_sink_slots(gnn_edges, gnn_weights, N,
                                                  self.slot_k)
@@ -315,18 +367,25 @@ class SparseGCM(nn.Module):
                 "max_hops path (hop_cap=None)")
 
     def scan(self, xs, state: SparseGraphState, dones=None,
-             unroll: int | None = None):
+             unroll: int | None = None,
+             generator: torch.Generator | None = None, noise=None):
         """Step the core one timestep at a time (t=1 windows) over xs
         [B, T, F] -> (beliefs [B, T, F_out], final state). dones [B, T]:
         the memory of batch b is wiped after the step where dones[b, t].
-        `unroll` is accepted only at its default."""
+        Stochastic selectors draw from `generator`, or take noise[t] (a
+        `forward` noise dict) at step t. `unroll` is accepted only at its
+        default: it is a compile knob of XLA's scan with no eager
+        meaning."""
         if unroll is not None:
-            raise NotImplementedError("unroll is not ported")
+            raise NotImplementedError(
+                "unroll is an XLA scan compile knob with no eager meaning")
         B, T_len, _ = xs.shape
         taus1 = torch.ones((B,), dtype=torch.int32, device=xs.device)
         outs = []
         for t in range(T_len):
-            out, state = self(xs[:, t:t + 1], taus1, state)
+            out, state = self(xs[:, t:t + 1], taus1, state,
+                              generator=generator,
+                              noise=None if noise is None else noise[t])
             if dones is not None:
                 state = reset_where(state, dones[:, t])
             outs.append(out[:, 0])

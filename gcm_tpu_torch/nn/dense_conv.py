@@ -1,9 +1,12 @@
 """Dense (adjacency-matrix) graph convolutions (counterpart of
-gcm_tpu/nn/dense_conv.py): DenseGraphConv and the DenseGNN stack.
+gcm_tpu/nn/dense_conv.py): DenseGraphConv, DenseGCNConv, `conv_project`
+and the DenseGNN stack.
 
 `adj[b, i, j] != 0` means the message flows j -> i (sink-row convention).
 A stack of DenseGraphConv('add') layers, each optionally followed by one
-tanh or relu, runs as one fused kernel launch (ops/cuda/fused_gnn.py).
+tanh or relu, runs as one fused kernel launch (ops/cuda/fused_gnn.py). A
+stack holding a DenseGCNConv runs layer by layer, its products plain
+PyTorch, as the JAX package computes them outside any kernel.
 """
 
 from __future__ import annotations
@@ -77,6 +80,56 @@ class DenseGraphConv(nn.Module):
         return out
 
 
+class DenseGCNConv(nn.Module):
+    """Dense GCN layer, torch_geometric's DenseGCNConv:
+    out = D^-1/2 A' D^-1/2 (x @ W) + b, where with add_loop A' is adj with
+    its diagonal *set* to 1 (2 if `improved`) and the degrees D are
+    clamped to at least 1."""
+
+    def __init__(self, in_dim: int, out_dim: int, improved: bool = False,
+                 use_bias: bool = True, *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.in_dim = in_dim
+        self.out_dim = out_dim
+        self.improved = improved
+        self.use_bias = use_bias
+        self.lin = Linear(in_dim, out_dim, use_bias=False, init="glorot",
+                          device=device, generator=generator)
+        self.bias = (nn.Parameter(torch.zeros(
+            out_dim, device=self.lin.kernel.device)) if use_bias else None)
+
+    def forward(self, x, adj, mask=None, add_loop: bool = True):
+        N = x.shape[1]
+        if add_loop:
+            eye = torch.eye(N, dtype=adj.dtype, device=adj.device)
+            adj = adj * (1.0 - eye) + eye * (2.0 if self.improved else 1.0)
+        out = self.lin(x)
+        deg_inv_sqrt = torch.rsqrt(torch.clamp(adj.sum(-1), min=1.0))
+        adj = deg_inv_sqrt[:, :, None] * adj * deg_inv_sqrt[:, None, :]
+        out = torch.einsum("bij,bjf->bif", adj, out)
+        if self.bias is not None:
+            out = out + self.bias
+        if mask is not None:
+            out = out * mask[..., None].to(out.dtype)
+        return out
+
+
+def conv_project(conv: DenseGraphConv, agg, h, act=None):
+    """The tail of a DenseGraphConv given its aggregate: lin_rel(agg) +
+    lin_root(h) [+ bias] [then act, 'tanh' or 'relu'], for inputs of shape
+    [..., F]: two products, as JAX's default form."""
+    out = (torch.einsum("...f,fo->...o", agg, conv.lin_rel.kernel)
+           + torch.einsum("...f,fo->...o", h, conv.lin_root.kernel))
+    if conv.lin_rel.bias is not None:
+        out = out + conv.lin_rel.bias
+    if act == "tanh":
+        out = torch.tanh(out)
+    elif act == "relu":
+        out = torch.clamp(out, min=0.0)
+    return out
+
+
 def plan_conv_stack(layers, allowed_aggrs=("add",)):
     """Detect a DenseGraphConv (+ optional tanh/relu) stack. Returns
     (conv_idx, acts, aggrs), one entry per conv, or None if any layer falls
@@ -92,7 +145,7 @@ def plan_conv_stack(layers, allowed_aggrs=("add",)):
         aggrs.append(layer.aggr)
         act = None
         if i + 1 < len(layers) and not isinstance(layers[i + 1],
-                                                  DenseGraphConv):
+                                                  _CONVS):
             act = _act_name(layers[i + 1])
             if act is None:
                 return None
@@ -104,10 +157,13 @@ def plan_conv_stack(layers, allowed_aggrs=("add",)):
     return tuple(conv_idx), tuple(acts), tuple(aggrs)
 
 
+_CONVS = (DenseGraphConv, DenseGCNConv)
+
+
 class DenseGNN(nn.Module):
     """A stack of dense conv layers and activations with the DenseGCM
-    signature gnn(x, adj, weights) -> x. DenseGraphConv layers receive
-    (x, adj), every other layer (activations) receives x. With
+    signature gnn(x, adj, weights) -> x. DenseGraphConv and DenseGCNConv
+    layers receive (x, adj), every other layer (activations) receives x. With
     `use_weights`, adj is multiplied elementwise by the weight matrix
     first. `fuse` (any true value) runs a
     recognised DenseGraphConv('add') stack as one fused kernel; fuse=""
@@ -135,5 +191,5 @@ class DenseGNN(nn.Module):
                          conv.lin_root.kernel]
             return fused_dense_gnn(x, adj.to(x.dtype), flat, acts)
         for layer in self.layers:
-            x = layer(x, adj) if isinstance(layer, DenseGraphConv) else layer(x)
+            x = layer(x, adj) if isinstance(layer, _CONVS) else layer(x)
         return x

@@ -24,8 +24,9 @@ def _uniform(shape, bound, generator) -> torch.Tensor:
 
 
 class Linear(nn.Module):
-    """init: 'torch' (kaiming-uniform, as above) or 'glorot' (uniform in
-    +-sqrt(6 / (in + out)), GCNConv's)."""
+    """init: 'torch' (kaiming-uniform, as above), 'glorot' (uniform in
+    +-sqrt(6 / (in + out)), GCNConv's) or 'orthogonal' (the sparse
+    LearnedEdge's scorer; the bias as 'torch')."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True, *,
                  init: str = "torch", device=None,
@@ -38,12 +39,14 @@ class Linear(nn.Module):
         bound = 1.0 / math.sqrt(in_dim) if in_dim > 0 else 0.0
         if init == "glorot":
             w_bound = math.sqrt(6.0 / (in_dim + out_dim))
-        elif init == "torch":
+        elif init in ("torch", "orthogonal"):
             w_bound = bound
         else:
             raise ValueError(f"unknown init {init!r}")
-        self.kernel = nn.Parameter(
-            _uniform((in_dim, out_dim), w_bound, generator).to(device))
+        kernel = _uniform((in_dim, out_dim), w_bound, generator)
+        if init == "orthogonal":
+            torch.nn.init.orthogonal_(kernel, generator=generator)
+        self.kernel = nn.Parameter(kernel.to(device))
         self.bias = (nn.Parameter(_uniform((out_dim,), bound, generator)
                                   .to(device)) if use_bias else None)
 

@@ -3,9 +3,11 @@
 `load_jax_params(model, params)` takes the JAX package's parameter tree with
 numpy (or any array-like) leaves, e.g. for a DenseGCM or a SparseGCM
 {"gnn": [...], "preprocessor": [...], "edge_selectors": {}}, and copies it
-into the port's modules: layers, edge selectors (a learned distance's
-`dist_param`, a learned TemporalBackedge's `window`, a LearnedEdge's
-`edge_network`, an EdgeChain's list) and positional encoders (`pe`,
+into the port's modules: layers (DenseGCNConv's `lin` and `bias`
+included), edge selectors (a learned distance's `dist_param`, a learned
+TemporalBackedge's `window`, a LearnedEdge's `edge_network`, the sparse
+LearnedEdge's `edge_network` and `tau`, an EdgeChain's or a
+SparseEdgeChain's list), the aux selectors and positional encoders (`pe`,
 `reproject`). Both sides store linear kernels [in, out], so
 nothing is transposed. DenseGraphConv and GraphConv share one layout, so one
 tree loads into the README's dense and sparse models alike.
@@ -30,13 +32,19 @@ from gcm_tpu_torch.edges.chain import EdgeChain
 from gcm_tpu_torch.edges.dense import DenseEdge
 from gcm_tpu_torch.edges.distance import Distance
 from gcm_tpu_torch.edges.learned import LearnedEdge
+from gcm_tpu_torch.edges.sparse_learned import LearnedEdge as \
+    SparseLearnedEdge
+from gcm_tpu_torch.edges.sparse_spatial import (SparseEdgeChain,
+                                                SpatialKNNEdge,
+                                                SpatialRadiusEdge)
 from gcm_tpu_torch.edges.sparse_temporal import TemporalEdge
 from gcm_tpu_torch.edges.temporal import TemporalBackedge
 from gcm_tpu_torch.models.dense_gcm import DenseGCM
 from gcm_tpu_torch.models.positional import (PositionalEncoding,
                                              RelativePositionalEncoding)
 from gcm_tpu_torch.models.sparse_gcm import SparseGCM
-from gcm_tpu_torch.nn.dense_conv import DenseGNN, DenseGraphConv
+from gcm_tpu_torch.nn.dense_conv import (DenseGCNConv, DenseGNN,
+                                         DenseGraphConv)
 from gcm_tpu_torch.nn.module import MLP, LayerNorm, Linear
 from gcm_tpu_torch.nn.sparse_conv import GCNConv, GraphConv, SparseGNN
 
@@ -58,7 +66,7 @@ def load_jax_params(module, params) -> None:
     elif isinstance(module, (DenseGraphConv, GraphConv)):
         load_jax_params(module.lin_rel, params["lin_rel"])
         load_jax_params(module.lin_root, params["lin_root"])
-    elif isinstance(module, GCNConv):
+    elif isinstance(module, (GCNConv, DenseGCNConv)):
         load_jax_params(module.lin, params["lin"])
         if module.bias is not None:
             _copy(module.bias, params["bias"])
@@ -79,7 +87,7 @@ def load_jax_params(module, params) -> None:
             sub = getattr(module, name, None)
             if sub is not None:
                 load_jax_params(sub, params.get(name, {}))
-    elif isinstance(module, EdgeChain):
+    elif isinstance(module, (EdgeChain, SparseEdgeChain)):
         if len(params) != len(module.selectors):
             raise ValueError(f"{len(params)} parameter entries for "
                              f"{len(module.selectors)} selectors")
@@ -87,6 +95,10 @@ def load_jax_params(module, params) -> None:
             load_jax_params(sel, p)
     elif isinstance(module, LearnedEdge):
         load_jax_params(module.edge_network, params["edge_network"])
+    elif isinstance(module, SparseLearnedEdge):
+        load_jax_params(module.edge_network, params["edge_network"])
+        if module.tau is not None:
+            _copy(module.tau, params["tau"])
     elif isinstance(module, Distance) and module.learned:
         _copy(module.dist_param, params["dist_param"])
     elif isinstance(module, TemporalBackedge) and module.learned:
@@ -96,7 +108,7 @@ def load_jax_params(module, params) -> None:
         if getattr(module, "reproject", None) is not None:
             load_jax_params(module.reproject, params["reproject"])
     elif isinstance(module, (TemporalBackedge, TemporalEdge, DenseEdge,
-                             Distance)):
+                             Distance, SpatialRadiusEdge, SpatialKNNEdge)):
         if params:
             raise ValueError(f"{type(module).__name__} has no parameters to "
                              "load")

@@ -5,8 +5,10 @@ through the JAX model and the port's model on the CPU, where the port's
 kernels take their plain versions: step by step, `scan` with wraparound
 (T > graph_size) and with `dones`, on the JAX default (XLA) path and its
 Pallas path (interpret mode), fused and unfused steps, the unfused GNN
-(`fuse=""`), and `SessionServer` with churn and LRU eviction. Tolerance
-1e-5: both sides compute in float32 and differ only in summation order.
+(`fuse=""`), `pooled=True` (the README GNN's whole output, and a pooling
+GNN), `validate=True` (the same ShapeErrors as JAX), and `SessionServer`
+with churn and LRU eviction. Tolerance 1e-5: both sides compute in float32
+and differ only in summation order.
 """
 
 import jax
@@ -18,11 +20,17 @@ import gcm_tpu.config as jax_config
 from gcm_tpu.core.graph_state import reset_where as jax_reset_where
 from gcm_tpu.models.dense_gcm import DenseGCM as JaxDenseGCM
 from gcm_tpu.models.presets import readme_dense_gcm as jax_readme_dense_gcm
+from gcm_tpu.core.graph_state import \
+    sparse_initial_state as jax_sparse_initial_state
 from gcm_tpu.nn.dense_conv import DenseGNN as JaxDenseGNN
+from gcm_tpu.nn.dense_conv import DenseGraphConv as JaxDenseGraphConv
+from gcm_tpu.utils.validation import ShapeError as JaxShapeError
 from gcm_tpu.serve.sessions import SessionServer as JaxSessionServer
-from gcm_tpu_torch import (DenseGCM, DenseGNN, SessionServer, load_jax_params,
-                           readme_dense_gcm, reset_where, state_from_numpy,
+from gcm_tpu_torch import (DenseGCM, DenseGNN, DenseGraphConv, SessionServer,
+                           load_jax_params, readme_dense_gcm, reset_where,
+                           sparse_initial_state, state_from_numpy,
                            state_to_numpy)
+from gcm_tpu_torch.utils.validation import ShapeError
 
 torch.set_num_threads(1)
 
@@ -133,6 +141,123 @@ def test_unfused_gnn_matches_jax(monkeypatch, path):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                rtol=0)
     assert_state_close(state, want_state)
+
+
+class JaxMeanPoolGNN:
+    """One tanh DenseGraphConv, then the mean over the nodes: a pooling
+    GNN, as tests/test_dense_gcm_options.py builds it."""
+
+    def __init__(self, f):
+        self.conv = JaxDenseGraphConv(f, f)
+
+    def init(self, key):
+        return {"conv": self.conv.init(key)}
+
+    def __call__(self, params, x, adj, weights=None):
+        return jax.numpy.tanh(self.conv(params["conv"], x, adj)).mean(axis=1)
+
+
+class MeanPoolGNN(torch.nn.Module):
+    def __init__(self, f):
+        super().__init__()
+        self.conv = DenseGraphConv(f, f, device="cpu")
+
+    def forward(self, x, adj, weights=None):
+        return torch.tanh(self.conv(x, adj)).mean(dim=1)
+
+
+@pytest.mark.parametrize("fused_step", [True, False])
+def test_pooled_matches_jax(monkeypatch, fused_step):
+    """pooled=True: the belief is the GNN's whole output, [B, N, 32] for the
+    README stack (step by step and scanned, past graph_size, with dones)
+    and [B, OBS] for a pooling GNN."""
+    set_jax_path(monkeypatch, "xla", fused_step)
+    jbase, params, base = build_pair(fused_step)
+    jmodel = JaxDenseGCM(jbase.gnn, preprocessor=jbase.preprocessor,
+                         edge_selectors=jbase.edge_selectors, graph_size=N,
+                         pooled=True)
+    model = DenseGCM(base.gnn, preprocessor=base.preprocessor,
+                     edge_selectors=base.edge_selectors, graph_size=N,
+                     pooled=True, fused_step=fused_step, device="cpu")
+    xs, dones = inputs(seed=5)
+    jstate, state = jmodel.initial_state(B, OBS), model.initial_state(B, OBS)
+    with torch.no_grad():
+        for t in range(3):
+            want, jstate = jmodel(params, xs[:, t], jstate)
+            got, state = model(torch.from_numpy(xs[:, t]), state)
+            assert got.shape == (B, N, 32)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=ATOL, rtol=0, err_msg=f"t={t}")
+        want, jstate = jmodel.scan(params, xs, jmodel.initial_state(B, OBS),
+                                   dones=dones)
+        got, state = model.scan(torch.from_numpy(xs),
+                                model.initial_state(B, OBS),
+                                dones=torch.from_numpy(dones))
+    assert got.shape == (B, T, N, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+    assert_state_close(state, jstate)
+
+    jmodel = JaxDenseGCM(JaxMeanPoolGNN(OBS), graph_size=N, pooled=True,
+                         edge_selectors=jbase.edge_selectors)
+    params = jmodel.init(jax.random.PRNGKey(1))
+    model = DenseGCM(MeanPoolGNN(OBS), graph_size=N, pooled=True,
+                     edge_selectors=base.edge_selectors,
+                     fused_step=fused_step, device="cpu")
+    load_jax_params(model.gnn.conv, jax.tree_util.tree_map(
+        np.asarray, params["gnn"]["conv"]))
+    want, _ = jmodel.scan(params, xs[:, :6], jmodel.initial_state(B, OBS))
+    with torch.no_grad():
+        got, _ = model.scan(torch.from_numpy(xs[:, :6]),
+                            model.initial_state(B, OBS))
+    assert got.shape == (B, 6, OBS)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+
+
+def test_validate_raises_like_jax():
+    """validate=True: each input that check_dense_inputs names is refused
+    by both with a ShapeError on the same field; a good step passes."""
+    jbase, params, base = build_pair()
+    jmodel = JaxDenseGCM(jbase.gnn, preprocessor=jbase.preprocessor,
+                         edge_selectors=jbase.edge_selectors, graph_size=N,
+                         validate=True)
+    model = DenseGCM(base.gnn, preprocessor=base.preprocessor,
+                     edge_selectors=base.edge_selectors, graph_size=N,
+                     validate=True, device="cpu")
+    x = np.ones((B, OBS), np.float32)
+    good = jmodel.initial_state(B, OBS)
+    np_good = state_to_numpy(model.initial_state(B, OBS))
+    cases = {
+        "sparse state": (x, None, "DenseGraphState"),
+        "x rank": (x[None], np_good, "x must be"),
+        "x width": (x[:, :5], np_good, "nodes must be"),
+        "x batch": (x[:3], np_good, "nodes must be"),
+        "adj": (x, np_good._replace(adj=np_good.adj[:, :, :5]),
+                "adj must be"),
+        "weights": (x, np_good._replace(weights=np.zeros((B, N, 3),
+                                                         np.float32)),
+                    "weights must be"),
+        "num_nodes shape": (x, np_good._replace(
+            num_nodes=np.zeros((B, 1), np.int32)), "num_nodes must be"),
+        "num_nodes dtype": (x, np_good._replace(
+            num_nodes=np.zeros((B,), np.float32)), "num_nodes must be"),
+        "x dtype": (x.astype(np.int32), np_good, "x must be floating"),
+    }
+    for name, (xx, st, match) in cases.items():
+        if st is None:
+            jst = jax_sparse_initial_state(B, N, OBS, 8)
+            tst = sparse_initial_state(B, N, OBS, 8)
+        else:
+            jst = type(good)(*(jax.numpy.asarray(a) for a in st))
+            tst = type(base.initial_state(1, 1))(*(torch.from_numpy(
+                np.asarray(a)) for a in st))
+        with pytest.raises(JaxShapeError, match=match):
+            jmodel(params, jax.numpy.asarray(xx), jst)
+        with pytest.raises(ShapeError, match=match), torch.no_grad():
+            model(torch.from_numpy(xx), tst)
+    with torch.no_grad():
+        model(torch.from_numpy(x), model.initial_state(B, OBS))
 
 
 def test_state_round_trip_from_jax():

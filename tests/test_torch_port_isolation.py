@@ -22,7 +22,9 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def test_import_leaves_jax_out():
     code = ("import sys, gcm_tpu_torch, gcm_tpu_torch.ops._build, "
-            "gcm_tpu_torch.weights, gcm_tpu_torch.benchmarks.spmm_variants; "
+            "gcm_tpu_torch.weights, gcm_tpu_torch.benchmarks.spmm_variants, "
+            "gcm_tpu_torch.edges.sparse_learned, "
+            "gcm_tpu_torch.edges.sparse_spatial; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'gcm_tpu' "
             "or m.startswith('gcm_tpu.')); print(bad)")
@@ -65,6 +67,12 @@ def _cpu_model():
                         edge_selectors=g.TemporalEdge([1])),
     lambda: g.LayerNorm(4),
     lambda: g.LearnedEdge(4),
+    lambda: g.SparseLearnedEdge(4),
+    lambda: g.DenseGCNConv(4, 4),
+    lambda: g.SparseGCM(g.SparseGNN([g.GraphConv(4, 4, device="cpu")]),
+                        edge_selectors=g.SparseEdgeChain(
+                            [g.TemporalEdge([1]),
+                             g.SpatialKNNEdge(slice(0, 2), 2)])),
     lambda: g.CosineEdge(0.5, learned=True),
     lambda: g.SpatialEdge(0.5, slice(0, 2), learned=True),
     lambda: g.TemporalBackedge(learned=True),
@@ -77,6 +85,7 @@ def _cpu_model():
 ], ids=["readme_dense_gcm", "Linear", "DenseGraphConv", "DenseGCM",
         "SessionServer", "resolve_device", "readme_sparse_gcm", "GraphConv",
         "GCNConv", "SparseGCM", "LayerNorm", "LearnedEdge",
+        "SparseLearnedEdge", "DenseGCNConv", "SparseGCM_spatial_chain",
         "CosineEdge_learned", "SpatialEdge_learned",
         "TemporalBackedge_learned", "PositionalEncoding",
         "RelativePositionalEncoding", "DenseGCM_cosine", "run_sweep",

@@ -1,7 +1,8 @@
 """The port's layers on their own against the JAX package: DenseGraphConv's
-three aggregations with and without bias and mask, DenseGNN with edge
-weights, the fused-stack planner, and TemporalBackedge's directions and
-hops inside a DenseGCM scan. Same weights (`load_jax_params`), same numpy
+three aggregations with and without bias and mask, DenseGCNConv (improved,
+bias, mask, add_loop) alone and in a DenseGCM scan, conv_project, DenseGNN
+with edge weights, the fused-stack planner, and TemporalBackedge's
+directions and hops inside a DenseGCM scan. Same weights (`load_jax_params`), same numpy
 inputs; tolerance 1e-5 (float32 on both sides, only summation order
 differs).
 """
@@ -16,13 +17,16 @@ from torch import nn
 import gcm_tpu.config as jax_config
 from gcm_tpu.edges.temporal import TemporalBackedge as JaxTemporalBackedge
 from gcm_tpu.models.dense_gcm import DenseGCM as JaxDenseGCM
+from gcm_tpu.nn.dense_conv import DenseGCNConv as JaxDenseGCNConv
 from gcm_tpu.nn.dense_conv import DenseGNN as JaxDenseGNN
 from gcm_tpu.nn.dense_conv import DenseGraphConv as JaxDenseGraphConv
+from gcm_tpu.nn.dense_conv import conv_project as jax_conv_project
 from gcm_tpu.nn.module import MLP as JaxMLP
 from gcm_tpu.nn.module import Linear as JaxLinear
-from gcm_tpu_torch import (DenseGCM, DenseGNN, DenseGraphConv, MLP, Linear,
-                           TemporalBackedge, load_jax_params, reset_where)
-from gcm_tpu_torch.nn.dense_conv import plan_conv_stack
+from gcm_tpu_torch import (DenseGCM, DenseGCNConv, DenseGNN, DenseGraphConv,
+                           MLP, Linear, TemporalBackedge, load_jax_params,
+                           reset_where)
+from gcm_tpu_torch.nn.dense_conv import conv_project, plan_conv_stack
 
 torch.set_num_threads(1)
 
@@ -63,6 +67,96 @@ def test_dense_graph_conv_matches_jax(aggr, use_bias, with_mask):
                    None if mask is None else torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                rtol=0)
+
+
+@pytest.mark.parametrize("improved", [False, True])
+def test_dense_gcn_conv_matches_jax(improved):
+    """DenseGCNConv with and without bias, mask and add_loop, on a 0/1 and
+    a weighted adjacency with content on its diagonal (add_loop sets the
+    diagonal; a node with no in-edges has its degree clamped to 1)."""
+    x, adj, weights, mask = graph_inputs(seed=2)
+    adj[:, 3, 3] = 1.0
+    for i, (use_bias, with_mask, add_loop, weighted) in enumerate(
+            [(b, m, a, w) for b in (True, False) for m in (False, True)
+             for a in (True, False) for w in (False, True)]):
+        case = (f"bias {use_bias}, mask {with_mask}, add_loop {add_loop}, "
+                f"weighted {weighted}")
+        jconv = JaxDenseGCNConv(FIN, FOUT, improved=improved,
+                                use_bias=use_bias)
+        params, np_params = jax_params(jconv, seed=i)
+        if use_bias:  # a bias that is not zero
+            params["bias"] = params["bias"] + 0.1 * (1 + jnp.arange(FOUT))
+            np_params["bias"] = np.asarray(params["bias"])
+        conv = DenseGCNConv(FIN, FOUT, improved=improved, use_bias=use_bias,
+                            device="cpu")
+        load_jax_params(conv, np_params)
+        a = adj * weights if weighted else adj
+        m = mask if with_mask else None
+        want = jconv(params, jnp.asarray(x), jnp.asarray(a),
+                     None if m is None else jnp.asarray(m), add_loop=add_loop)
+        with torch.no_grad():
+            got = conv(torch.from_numpy(x), torch.from_numpy(a),
+                       None if m is None else torch.from_numpy(m),
+                       add_loop=add_loop)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   rtol=0, err_msg=case)
+
+
+def test_conv_project_matches_jax():
+    """lin_rel(agg) + lin_root(h) [+ bias] [+ act] over [..., F] inputs of
+    two and three leading dims, each activation, with and without bias."""
+    rng = np.random.default_rng(3)
+    for use_bias in (True, False):
+        jconv = JaxDenseGraphConv(FIN, FOUT, use_bias=use_bias)
+        params, np_params = jax_params(jconv, seed=4)
+        conv = DenseGraphConv(FIN, FOUT, use_bias=use_bias, device="cpu")
+        load_jax_params(conv, np_params)
+        for shape in ((B, FIN), (B, N, FIN)):
+            agg, h = (rng.standard_normal(shape).astype(np.float32)
+                      for _ in range(2))
+            for act in (None, "tanh", "relu"):
+                want = jax_conv_project(params, jnp.asarray(agg),
+                                        jnp.asarray(h), act)
+                with torch.no_grad():
+                    got = conv_project(conv, torch.from_numpy(agg),
+                                       torch.from_numpy(h), act)
+                np.testing.assert_allclose(
+                    got.numpy(), np.asarray(want), atol=ATOL, rtol=0,
+                    err_msg=f"bias {use_bias}, {shape}, {act}")
+
+
+def test_dense_gcm_with_gcn_conv_matches_jax():
+    """A DenseGNN of two DenseGCNConv + tanh runs layer by layer (no fused
+    plan), in a DenseGCM scanned past its graph size with dones."""
+    hidden, T = 8, 24
+    jgnn = JaxDenseGNN([JaxDenseGCNConv(hidden, hidden), jnp.tanh,
+                        JaxDenseGCNConv(hidden, hidden, improved=True),
+                        jnp.tanh])
+    jmodel = JaxDenseGCM(jgnn, preprocessor=JaxMLP([JaxLinear(FIN, hidden)]),
+                         edge_selectors=JaxTemporalBackedge([1, 2]),
+                         graph_size=N)
+    params, np_params = jax_params(jmodel, seed=5)
+    gnn = DenseGNN([DenseGCNConv(hidden, hidden, device="cpu"), torch.tanh,
+                    DenseGCNConv(hidden, hidden, improved=True,
+                                 device="cpu"), torch.tanh])
+    assert gnn._fused_plan is None
+    model = DenseGCM(gnn, preprocessor=MLP([Linear(FIN, hidden,
+                                                   device="cpu")]),
+                     edge_selectors=TemporalBackedge([1, 2]), graph_size=N,
+                     device="cpu")
+    load_jax_params(model, np_params)
+    rng = np.random.default_rng(6)
+    xs = rng.standard_normal((B, T, FIN)).astype(np.float32)
+    dones = rng.random((B, T)) < 0.1
+    want, jstate = jmodel.scan(params, xs, jmodel.initial_state(B, FIN),
+                               dones=dones)
+    with torch.no_grad():
+        got, state = model.scan(torch.from_numpy(xs),
+                                model.initial_state(B, FIN),
+                                dones=torch.from_numpy(dones))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_array_equal(state.adj.numpy(), np.asarray(jstate.adj))
 
 
 @pytest.mark.parametrize("fuse", ["auto", ""])
@@ -163,9 +257,8 @@ def _fused_step_with_other_selector(m):
 
 @pytest.mark.parametrize("make", [
     lambda m: m.scan(torch.zeros(1, 2, 8), m.initial_state(1, 8), unroll=4),
-    lambda m: DenseGCM(m.gnn, pooled=True, device="cpu"),
     _fused_step_with_other_selector,
-], ids=["unroll", "pooled", "other_selector"])
+], ids=["unroll", "other_selector"])
 def test_unported_options_raise(make):
     from gcm_tpu_torch import readme_dense_gcm
 

@@ -608,15 +608,16 @@ def test_guards():
 
 
 def test_unported_and_invalid_options_raise():
-    for kw, err in [
-            (dict(hop_cap="auto", max_hops=1), NotImplementedError),
-            (dict(positional_encoder=object()), NotImplementedError),
-            (dict(aux_edge_selectors=object()), NotImplementedError),
-            (dict(aggregation="slots"), ValueError),
-            (dict(aggregation="slots", slot_k=1, graph_size=64), ValueError),
-            (dict(hop_cap=8), ValueError)]:
-        with pytest.raises(err):
+    """Invalid options raise ValueError; scan(unroll=) raises with its
+    reason (every other option of the JAX SparseGCM is ported)."""
+    for kw in [dict(aggregation="slots"),
+               dict(aggregation="slots", slot_k=1, graph_size=64),
+               dict(hop_cap=8), dict(hop_cap="some", max_hops=1),
+               dict(hop_cap="auto", max_hops=1, aggregation="slots",
+                    slot_k=1),
+               dict(aggregation="sum"), dict(emit="yes")]:
+        with pytest.raises(ValueError):
             readme_sparse_gcm(device="cpu", **kw)
     model = readme_sparse_gcm(graph_size=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="unroll"):
+    with pytest.raises(NotImplementedError, match="no eager meaning"):
         model.scan(torch.zeros(1, 2, 8), model.initial_state(1, 8), unroll=2)

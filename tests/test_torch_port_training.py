@@ -11,8 +11,10 @@ versions, forward and backward:
   lanes;
 - `make_dense_supervised_step` on the README DenseGCM (ring wraparound,
   with and without dones) and with a LearnedEdge selector, and
-  `make_sparse_supervised_step` on the README SparseGCM (default and
-  slots): the loss and every parameter gradient against
+  `make_sparse_supervised_step` on the README SparseGCM and on the
+  learned sparse core (a deterministic sparse LearnedEdge, its edge
+  weights carrying the gradient into the scorer and the temperature),
+  default and slots: the loss and every parameter gradient against
   `jax.value_and_grad` of the JAX loss, then the parameters after one
   torch.optim.Adam step against one optax.adam step;
 - the port's dense and sparse cores give the same gradients, and
@@ -33,13 +35,15 @@ import torch
 
 import gcm_tpu.config as jax_config
 from gcm_tpu.edges.learned import LearnedEdge as JaxLearnedEdge
+from gcm_tpu.edges.sparse_learned import LearnedEdge as JaxSparseLearnedEdge
 from gcm_tpu.models.dense_gcm import DenseGCM as JaxDenseGCM
 from gcm_tpu.models.presets import readme_dense_gcm as jax_readme_dense_gcm
 from gcm_tpu.models.presets import readme_sparse_gcm as jax_readme_sparse_gcm
 from gcm_tpu.ops import dispatch as jax_dispatch
 from gcm_tpu.ops.pallas import fused_gnn as jax_fused_gnn
 from gcm_tpu.ops.pallas import spmm_slots as jax_slots
-from gcm_tpu_torch import (DenseGCM, LearnedEdge, load_jax_params,
+from gcm_tpu_torch import (DenseGCM, LearnedEdge, SparseGCM,
+                           SparseLearnedEdge, load_jax_params,
                            make_dense_supervised_step,
                            make_sparse_supervised_step, named_from_jax,
                            readme_dense_gcm, readme_sparse_gcm)
@@ -245,7 +249,7 @@ def compare_step(model, jmodel, params, torch_step, jax_loss, batch, msg):
     but those whose gradient is zero up to rounding (LearnedEdge's logit
     shifts: sparsemax does not see a shift of all logits), which must be
     such a zero on both sides."""
-    loss, grads = jax.value_and_grad(jax_loss)(params, *batch)
+    loss, grads = jax.jit(jax.value_and_grad(jax_loss))(params, *batch)
     opt = optax.adam(LR)
     updates, _ = opt.update(grads, opt.init(params), params)
     new_params = optax.apply_updates(params, updates)
@@ -369,6 +373,65 @@ def test_sparse_step_matches_jax(aggregation):
         model, torch.optim.Adam(model.parameters(), lr=LR))
     compare_step(model, jmodel, params, step, jax_loss, (xs, targets, taus),
                  f"sparse, {aggregation}")
+
+
+@pytest.mark.parametrize("aggregation", ["auto", "slots"])
+def test_learned_sparse_step_matches_jax(aggregation, monkeypatch):
+    """The README SparseGCM with a deterministic sparse LearnedEdge
+    (num_edge_samples 3, so slot_k 3 bounds a sink's edges), graph 128, one
+    window of 12 with ragged taus: the edge weights, 1.0 forward, carry
+    d(loss)/d(soft) into the edge network and tau, so the SpMMs' dw runs
+    (edge_weight_grad's plain version here; counted below), once per
+    layer."""
+    from gcm_tpu_torch.ops.cuda import spmm as spmm_mod
+
+    kw = dict(aggregation="slots", slot_k=3) if aggregation == "slots" \
+        else {}
+    jbase = jax_readme_sparse_gcm(obs_size=OBS, hidden=HIDDEN)
+    jmodel = type(jbase)(jbase.gnn, preprocessor=jbase.preprocessor,
+                         edge_selectors=JaxSparseLearnedEdge(
+                             OBS, deterministic=True, num_edge_samples=3),
+                         graph_size=128, max_edges=256, **kw)
+    params = jmodel.init(jax.random.PRNGKey(9))
+    base = readme_sparse_gcm(obs_size=OBS, hidden=HIDDEN, device="cpu")
+    model = SparseGCM(base.gnn, preprocessor=base.preprocessor,
+                      edge_selectors=SparseLearnedEdge(
+                          OBS, deterministic=True, num_edge_samples=3,
+                          device="cpu"),
+                      graph_size=128, max_edges=256, device="cpu", **kw)
+    load_jax_params(model, numpy_tree(params))
+
+    def jax_loss(params, xs, targets, taus):
+        state = jmodel.initial_state(xs.shape[0], xs.shape[-1])
+        outs, _ = jmodel(params, xs, taus, state)
+        return jnp.mean((outs - targets) ** 2)
+
+    calls = []
+    plain = spmm_mod.edge_weight_grad
+
+    def counted(*args):
+        calls.append(1)
+        return plain(*args)
+
+    monkeypatch.setattr(spmm_mod, "edge_weight_grad", counted)
+    if aggregation == "slots":
+        from gcm_tpu_torch.ops.cuda import spmm_slots as slots_mod
+        monkeypatch.setattr(slots_mod, "edge_weight_grad", counted)
+    rng = np.random.default_rng(10)
+    B, T = 3, 12
+    taus = np.array([T, 7, 10], np.int32)
+    xs = 2.0 * rng.standard_normal((B, T, OBS)).astype(np.float32)
+    xs[np.arange(T)[None, :] >= taus[:, None]] = 0.0
+    targets = rng.standard_normal((B, T, HIDDEN)).astype(np.float32)
+    step = make_sparse_supervised_step(
+        model, torch.optim.Adam(model.parameters(), lr=LR))
+    compare_step(model, jmodel, params, step, jax_loss, (xs, targets, taus),
+                 f"learned sparse, {aggregation}")
+    assert len(calls) == 2, calls
+    learned = {n: p.grad for n, p in model.named_parameters()
+               if n.startswith("edge_selectors")}
+    assert "edge_selectors.tau" in learned
+    assert all(bool(g.abs().sum() > 0) for g in learned.values()), learned
 
 
 # -- the port against itself ----------------------------------------------------
