@@ -13,8 +13,8 @@ Phases, one JSON line each:
    torch bmm/addmm chain of the same function (TF32 off), the dense
    kernels at cases that reach every instantiation of csrc/dense_gnn.cu,
    and an empty kernel by the same harness (the floor under small calls);
-   then inputs the kernels do not take (misaligned, wrong graph size,
-   float64) must raise, unlaunched;
+   then inputs the kernels do not take (misaligned, a graph size above
+   1,024, float64) must raise, unlaunched;
 4. serve: the flagship DenseGCM in a SessionServer(capacity=256) for 200
    ticks with session churn and LRU evictions, against a CPU copy with the
    same weights (atol 1e-4), with a snapshot/restore at tick 100 that must
@@ -82,7 +82,22 @@ Phases, one JSON line each:
    benchmarks/gate_hygiene.py's point for N = 128..1,024, and hop_cap
    compaction against the masked path at benchmarks/hop_compact.py's
    workload for N = 256..4,096 at F = 128 and 32, each pair with the same
-   beliefs.
+   beliefs;
+13. ring: the ring core (RingDenseGCM) at the README widths over
+   [32, 256, 8] with TemporalBackedge([1]), CosineEdge(0.5) and a
+   deterministic LearnedEdge, against the port's DenseGCM with the same
+   modules (1e-5; 1e-4 for the cosine graph's ~85 in-edges a row) and a
+   CPU copy (1e-4), then the ring and dense cores served at capacity 256
+   in turns (µs, kernels and device µs a tick);
+14. rl: A2C and PPO on the card (gcm_tpu_torch/rl): CartPole with masked
+   velocities (horizon 64, reward scale 0.05, B=64) under the ring
+   GCMActorCritic (graph 16, hops [1, 2], widths 64): one update's loss
+   and gradients against a CPU copy (1e-4), 5 A2C and 2 PPO updates timed
+   and profiled, the replay's remat timed in turns; the recall task at
+   graph size 5 (off the 16-row grid), which must learn as the JAX
+   package's test demands; one sparse-policy update against a CPU copy;
+   the trained policy served by SessionServer.from_policy against a CPU
+   copy (1e-4).
 Phase 3 also holds spmm_edge_list and spmm_slots (bitwise: kernel and
 plain version add in the same order; slots also with sources outside their
 windows) against their plain versions beside one torch.sparse.mm call on a
@@ -128,8 +143,10 @@ no valid lane and rows of 16,387 floats, on the planner's plan and on
 other plans forced through its tile_bytes and splits (each a different
 plan: the other route on either side of its warp-a-lane threshold, other
 tiles and splits at the sweep's point), beside one
-torch.sparse.sampled_addmm.
-Phases 4-12 each run with every launch count set to 0 just before and
+torch.sparse.sampled_addmm. The dense kernels and the stack backward also
+run at graph sizes off their 16-row grid (N = 5, 65, 100), which the
+wrappers pad and slice, each against its plain version at the unpadded N.
+Phases 4-14 each run with every launch count set to 0 just before and
 read just after; each must launch the kernels of its path.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero and prints no result.
@@ -428,6 +445,17 @@ KERNEL_CASES = [
     ("fused_dense_gnn", 16, 64, (7, 96, 9), ("tanh", None), "0/1", False),
     ("fused_dense_gnn", 8, 512, (64, 64, 64), ("relu", "tanh"), "0/1",
      False),
+    # graph sizes off the kernels' 16-row grid, which the wrappers pad
+    # (the RL configurations' horizon + 1: 5 for the recall task, 65 for
+    # CartPole at horizon 64; and 100)
+    ("fused_dense_gnn", 32, 5, (16, 16, 16), ("tanh", "tanh"), "0/1", False),
+    ("fused_dense_gnn", 64, 65, (64, 64, 64), ("tanh", "tanh"), "weighted",
+     False),
+    ("fused_dense_gnn", 16, 100, (32, 32, 32), ("relu", "tanh"), "0/1",
+     False),
+    ("fused_dense_graph_conv", 32, 5, (16, 16), ("tanh",), "0/1", False),
+    ("fused_dense_graph_conv", 64, 65, (64, 64), (None,), "weighted", False),
+    ("fused_dense_graph_conv", 16, 100, (32, 32), ("relu",), "0/1", False),
 ]
 
 
@@ -554,6 +582,11 @@ DENSE_BWD_CASES = [
     ("B=300", 300, 128, (32, 32, 32), ("tanh", "tanh"), False, "0/1", False),
     ("scratch", 2, 1024, (128, 128, 128), ("tanh", "tanh"), True,
      "weighted", False),
+    # graph sizes off the 16-row grid, padded by the wrapper
+    ("N=5", 32, 5, (16, 16, 16), ("tanh", "tanh"), True, "0/1", False),
+    ("N=65", 64, 65, (64, 64, 64), ("tanh", "tanh"), False, "weighted",
+     False),
+    ("N=100", 16, 100, (32, 32, 32), ("relu", "tanh"), True, "0/1", False),
 ]
 # what a block of the backward keeps in shared memory, as its plan says:
 # its rows (else they are in global scratch), the adjacency, the weights;
@@ -728,21 +761,21 @@ def refusal_phase() -> None:
     x, adj, *flat = make_case(2, 128, (32, 32), seed=99)
     misaligned = torch.empty(adj.numel() + 1, device=adj.device)[1:] \
         .view(adj.shape).copy_(adj)
-    x100, adj100, *flat100 = make_case(2, 112, (32, 32), seed=99)
-    adj100 = adj100[:, :100, :100].contiguous()
-    x100 = x100[:, :100].contiguous()
+    # a graph size off the 16-row grid is padded and launched; one above
+    # the kernels' 1,024 rows is not
+    x2k, adj2k, *flat2k = make_case(1, 2048, (32, 32), seed=99)
     cases = {
         "misaligned_adj": lambda: fused_dense_gnn(x, misaligned, flat,
                                                   ("tanh",)),
-        "graph_size_100": lambda: fused_dense_graph_conv(x100, adj100,
-                                                         *flat100),
+        "graph_size_2048": lambda: fused_dense_graph_conv(x2k, adj2k,
+                                                          *flat2k),
         "float64": lambda: fused_dense_graph_conv(x.double(), adj.double(),
                                                   *(p.double() for p in flat)),
     }
     refuse_all(cases, (fused_dense_gnn, fused_dense_graph_conv))
 
 
-# -- phase 3, continued: the SpMM kernels ---------------------------------------
+# -- phase 3, continued: the SpMM kernels -------------------------------------
 
 def temporal_edges(B, N, E, hops, steps):
     """The [B, 2, E] int32 edge list TemporalEdge(hops) leaves after `steps`
@@ -1255,7 +1288,7 @@ def scan_phase(card: str, seed: int = 0, B: int = 32, T: int = 256):
          fused_dense_graph_conv_launches=launched)
 
 
-# -- phase 6: the sparse core ---------------------------------------------------
+# -- phase 6: the sparse core -------------------------------------------------
 
 def numpy_params(seed: int, obs: int = 8, hidden: int = 32) -> dict:
     """One parameter tree, in the JAX package's layout, for the README's
@@ -1419,7 +1452,7 @@ def sparse_phase(card: str, seed: int = 0, B: int = 32, T: int = 128,
     emit("sparse", **row)
 
 
-# -- phase 7: the README DenseGCM with the other dense selectors ---------------
+# -- phase 7: the README DenseGCM with the other dense selectors --------------
 
 SELECTOR_THRESHOLDS = {"cosine": 0.5, "spatial": 0.25, "euclidean": 1.0,
                        "recall_chain": 1.0}
@@ -1663,7 +1696,7 @@ def selector_phase(card: str, serve_ticks: int = 100, B: int = 32,
     emit("selectors", **row)
 
 
-# -- phase 8: the SpMM variants and their sweep --------------------------------
+# -- phase 8: the SpMM variants and their sweep -------------------------------
 
 def variant_inputs(case, B, N, F, E, seed):
     """x, edges, weights on the card for a variant case: spmm_inputs', and
@@ -2628,6 +2661,371 @@ def gate_phase(card: str, seed: int = 0):
 
 # -- main ---------------------------------------------------------------------
 
+# -- phase 13: the ring core --------------------------------------------------
+
+# selector -> how close the ring's beliefs must come to the dense core's on
+# the card: the two sum each row's in-edges in another order (slot against
+# logical order), which at CosineEdge(0.5)'s ~85 in-edges a row reaches
+# 3.7e-5 between the plain versions on the CPU already
+RING_SELECTORS = {"temporal": TOL_KERNEL, "cosine": TOL_MODEL,
+                  "learned": TOL_KERNEL}
+
+
+def ring_pair(kind: str, device: str, seed: int = 0):
+    """The README DenseGCM (readme_dense_gcm's weights, obs 8, hidden 32,
+    graph 128) with TemporalBackedge([1]), CosineEdge(0.5) or a
+    deterministic LearnedEdge(8), and a RingDenseGCM of the same modules."""
+    from gcm_tpu_torch import (CosineEdge, DenseGCM, LearnedEdge,
+                               RingDenseGCM, TemporalBackedge,
+                               readme_dense_gcm)
+
+    sel = {"temporal": lambda: TemporalBackedge([1]),
+           "cosine": lambda: CosineEdge(max_distance=0.5),
+           "learned": lambda: LearnedEdge(
+               input_size=8, deterministic=True, device=device,
+               generator=torch.Generator().manual_seed(seed + 1))}[kind]()
+    base = readme_dense_gcm(obs_size=8, device=device, seed=seed)
+    kw = dict(preprocessor=base.preprocessor, edge_selectors=sel,
+              graph_size=base.graph_size, device=device)
+    return RingDenseGCM(base.gnn, **kw), DenseGCM(base.gnn, **kw)
+
+
+NEAR_TIE = 1e-5  # |z - tau| of spardmax below this may flip between devices
+
+
+def ring_learned_teacher_forced(ring, ring_cpu, xs) -> dict:
+    """The ring with a deterministic LearnedEdge against its CPU copy step
+    by step, each CPU step from the card's state: an edge of row p may
+    differ only where the CPU's spardmax margin |z - tau| (z the shaped
+    logits, tau the sparsemax threshold) is under NEAR_TIE; beliefs within
+    TOL_MODEL wherever row p agrees."""
+    from gcm_tpu_torch.utils.ste import sparsemax
+
+    B, T = xs.shape[0], xs.shape[1]
+    N = ring.graph_size
+    state = ring.initial_state(B, 8)
+    flips, worst_margin, worst = 0, 0.0, 0.0
+    for t in range(T):
+        cpu_state = type(state)(*(a.cpu() for a in state))
+        out, nxt = ring(xs[:, t].cuda(), state)
+        want, want_next = ring_cpu(xs[:, t], cpu_state)
+        p, _, _, valid = ring_cpu._geometry(cpu_state.t)
+        b = torch.arange(B)
+        i_eq = torch.arange(N)[None, :] == p[:, None]
+        nodes = torch.where(i_eq[..., None], xs[:, t][:, None, :],
+                            cpu_state.nodes)
+        curr = nodes[b, p.long()]
+        sel = ring_cpu.edge_selectors
+        logits = sel.edge_network(torch.cat(
+            [curr[:, None, :].expand_as(nodes), nodes], dim=-1))[..., 0]
+        z = torch.where(valid, logits, -1e10)
+        soft = sparsemax(z)
+        tau = torch.where(soft > 0, z - soft, -float("inf")).amax(
+            -1, keepdim=True)
+        differ = nxt.adj.cpu() != want_next.adj
+        check(not bool((differ & ~i_eq[:, :, None]).any()),
+              f"ring learned step {t}: an edge off row p differs")
+        row_differs = differ[b, p.long()]
+        if bool(row_differs.any()):
+            margin = float((z - tau).abs()[row_differs].max())
+            check(margin < NEAR_TIE, f"ring learned step {t}: an edge differs "
+                  f"from the CPU copy at margin {margin} >= {NEAR_TIE}")
+            flips += int(row_differs.sum())
+            worst_margin = max(worst_margin, margin)
+        agree = ~row_differs.any(-1)
+        if bool(agree.any()):
+            worst = max(worst, float((out.cpu()[agree] - want[agree])
+                                     .abs().max()))
+        state = nxt
+    check(worst <= TOL_MODEL, f"ring learned, teacher-forced: beliefs "
+          f"differ from the CPU copy by {worst} > {TOL_MODEL}")
+    return dict(steps=T, edges_flipped=flips, largest_flip_margin=worst_margin,
+                max_abs_err_where_rows_agree=worst)
+
+
+def ring_phase(card: str, seed: int = 0, B: int = 32, T: int = 256,
+               ticks: int = 100, capacity: int = 256):
+    """The ring core (RingDenseGCM) at the README widths over [32, 256, 8],
+    which wraps its 128 slots twice, with TemporalBackedge([1]),
+    CosineEdge(0.5) (scored by sddmm_threshold_row's explicit entry in slot
+    space) and a deterministic LearnedEdge: beliefs within TOL_KERNEL of
+    the port's DenseGCM with the same modules on the card, and within
+    TOL_MODEL of a CPU copy of the ring; one fused_dense_gnn launch a step,
+    one sddmm launch a cosine step. Then the temporal ring and dense cores
+    served at capacity 256 in turns on the same requests: median µs a tick
+    and, from a profiled window, kernels and device µs a tick."""
+    from gcm_tpu_torch import SessionServer
+    from gcm_tpu_torch.ops.cuda.fused_gnn import fused_dense_gnn
+    from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
+
+    t_phase = time.perf_counter()
+    xs = torch.from_numpy(np.random.default_rng(seed + 60).standard_normal(
+        (B, T, 8)).astype(np.float32))
+    xs_c = xs.cuda()
+    row = dict(card=card, B=B, T=T, graph_size=128)
+    with torch.no_grad():
+        for kind, tol in RING_SELECTORS.items():
+            ring, dense = ring_pair(kind, "cuda", seed)
+            ring_cpu, _ = ring_pair(kind, "cpu", seed)
+            before = (fused_dense_gnn.launches, sddmm_threshold_row.launches)
+            (got, state), secs = timed(
+                lambda: ring.scan(xs_c, ring.initial_state(B, 8)))
+            launched = (fused_dense_gnn.launches - before[0],
+                        sddmm_threshold_row.launches - before[1])
+            (want_dense, _), dense_secs = timed(
+                lambda: dense.scan(xs_c, dense.initial_state(B, 8)))
+            want_cpu, cpu_state = ring_cpu.scan(xs,
+                                                ring_cpu.initial_state(B, 8))
+            check(bool(torch.isfinite(got).all()), f"ring {kind}: non-finite")
+            err_dense = float((got - want_dense).abs().max())
+            err_cpu = float((got.cpu() - want_cpu).abs().max())
+            adj_equal = torch.equal(state.adj.cpu(), cpu_state.adj)
+            check(err_dense <= tol, f"ring {kind}: beliefs differ "
+                  f"from the dense core's by {err_dense} > {tol}")
+            if kind == "learned":
+                # spardmax's hard support flips where a logit sits within
+                # rounding of the threshold, and a flip then changes every
+                # later step: held teacher-forced, step by step
+                row_teacher = ring_learned_teacher_forced(ring, ring_cpu, xs)
+            else:
+                check(err_cpu <= TOL_MODEL, f"ring {kind}: beliefs differ "
+                      f"from the CPU copy by {err_cpu} > {TOL_MODEL}")
+            want = (T, T if kind == "cosine" else 0)
+            check(launched == want, f"ring {kind}: launches (fused_dense_gnn, "
+                  f"sddmm) {launched}, expected {want}")
+            row[f"scan_{kind}"] = dict(
+                max_abs_err_vs_dense=err_dense, max_abs_err_vs_cpu=err_cpu,
+                adj_equal_to_cpu=adj_equal,
+                **({"teacher_forced": row_teacher} if kind == "learned"
+                   else {}),
+                timesteps_per_s=B * T / secs,
+                dense_timesteps_per_s=B * T / dense_secs,
+                launches=dict(fused_dense_gnn=launched[0],
+                              sddmm_threshold_row=launched[1]))
+        servers = {}
+        for name, model in zip(("ring", "dense"),
+                               ring_pair("temporal", "cuda", seed)):
+            servers[name] = SessionServer(model, capacity, 8)
+        rng = np.random.default_rng(seed + 61)
+        step_s = {k: [] for k in servers}
+        outs, reqs = {}, {}
+        for tick in range(ticks + 10):  # the first 10 ticks warm up
+            reqs = tick_requests(rng, capacity)
+            for k, srv in servers.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[k] = srv.step(reqs)
+                if tick >= 10:
+                    step_s[k].append(time.perf_counter() - t0)
+            err = max(float(np.abs(outs["ring"][s] - outs["dense"][s]).max())
+                      for s in reqs)
+            check(err <= TOL_KERNEL, f"served ring tick {tick} differs from "
+                  f"the dense core's by {err}")
+        row["served_in_turns"] = {
+            k: dict(capacity=capacity, ticks=ticks,
+                    us_per_tick_median=1e6 * statistics.median(step_s[k]),
+                    profile=dict(requests_per_tick=len(reqs),
+                                 **profile_calls(
+                                     lambda srv=srv: srv.step(reqs))))
+            for k, srv in servers.items()}
+    emit("ring", seconds=time.perf_counter() - t_phase, **row)
+
+
+# -- phase 14: RL on the card -------------------------------------------------
+
+def cpu_copy(policy, build):
+    """build("cpu") with the card policy's weights."""
+    cpu = build("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in policy.state_dict().items()})
+    return cpu
+
+
+def grads_vs_cpu(label, trainer, cpu_trainer, traj):
+    """One update's loss and every gradient of the card trainer's policy
+    against the CPU copy's on the same trajectory (TOL_MODEL); the card's
+    replay runs the kernels' Functions, forward and backward."""
+    traj_cpu = {k: v.cpu() for k, v in traj.items()}
+    out = {}
+    for tr, tj in ((trainer, traj), (cpu_trainer, traj_cpu)):
+        tr.opt.zero_grad(set_to_none=True)
+        loss, _ = tr.loss(tj)
+        loss.backward()
+        out[tr] = (float(loss.detach()), {n: p.grad for n, p in
+                                 tr.policy.named_parameters()})
+    (loss, grads), (want_loss, want_grads) = out[trainer], out[cpu_trainer]
+    errs = [abs(loss - want_loss)]
+    for n, g in grads.items():
+        check(g is not None and bool(torch.isfinite(g).all()),
+              f"{label}: gradient of {n} missing or non-finite")
+        errs.append(float((g.cpu() - want_grads[n]).abs().max()))
+    worst = max(errs)
+    check(worst <= TOL_MODEL, f"{label}: loss or gradients differ from the "
+          f"CPU copy by {worst} > {TOL_MODEL}")
+    return dict(loss=loss, max_abs_err_vs_cpu=worst, params=len(grads))
+
+
+def timed_updates(trainer, generator, B, n):
+    """n updates, each synchronised: (wall ms of each, the last metrics)."""
+    ms, metrics = [], None
+    for _ in range(n):
+        (metrics), secs = timed(lambda: trainer.update(generator, B))
+        ms.append(1e3 * secs)
+    return ms, metrics
+
+
+def rl_phase(card: str, seed: int = 0):
+    """RL trained on the card (gcm_tpu_torch/rl):
+    (a) CartPoleEnv(horizon=64, masked_velocity=True, reward_scale=0.05)
+    at B=64 under GCMActorCritic's ring core (graph_size 16,
+    TemporalBackedge([1, 2]), widths 64 -> 64), the configuration the JAX
+    package's CartPoleEnv documents: one A2C update's loss and every
+    gradient against a CPU copy on the same collected trajectory (1e-4); 5
+    A2C updates and 2 PPO updates (4 epochs x 2 minibatches), wall ms per
+    update and env steps/s, and where one profiled update's time goes; the
+    replay + backward with remat=False and with chunks of 16 and 8 steps,
+    timed in turns on one trajectory (the choice train_remat_for holds);
+    (b) tests/test_rl.py's learning check: RecallEnv(2 symbols, horizon 4,
+    noise 2) at graph_size 5 (off the 16-row grid), gnn 16/16, previous
+    actions, A2C(lr=8e-3, entropy_coef=0.003), 150 updates at B=32, which
+    must reach late > max(0.62, early + 0.05);
+    (c) one A2C update of a SparseGCMActorCritic (TemporalEdge([1]),
+    max_edges 64, graph 8) on that RecallEnv against a CPU copy (1e-4);
+    (d) the trained (b) policy (its weights, no previous actions) served by
+    SessionServer.from_policy at capacity 256 against a CPU copy: logits
+    and values within 1e-4."""
+    from gcm_tpu_torch import (A2C, PPO, CartPoleEnv, GCMActorCritic,
+                               RecallEnv, SessionServer,
+                               SparseGCMActorCritic, TemporalBackedge,
+                               TemporalEdge)
+    from gcm_tpu_torch.rl import wrappers
+
+    t_phase = time.perf_counter()
+    row = dict(card=card)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    # (a) CartPole, the documented configuration
+    B, T = 64, 64
+
+    def cartpole(device):
+        return GCMActorCritic(
+            2, 2, 2, graph_size=16, edge_selectors=TemporalBackedge([1, 2]),
+            device=device, generator=torch.Generator().manual_seed(seed))
+
+    env = CartPoleEnv(horizon=T, masked_velocity=True, reward_scale=0.05)
+    env_cpu = CartPoleEnv(horizon=T, masked_velocity=True, reward_scale=0.05,
+                          device="cpu")
+    pol = cartpole("cuda")
+    a2c = A2C(env, pol, rollout_len=T)
+    traj = a2c.collect(g, B)
+    a = dict(B=B, T=T, graph_size=16, core="ring")
+    a["grads"] = grads_vs_cpu("cartpole a2c", a2c,
+                              A2C(env_cpu, cpu_copy(pol, cartpole),
+                                  rollout_len=T), traj)
+    a["episode_ends_in_rollout"] = int(traj["dones"].sum())
+    ms, m = timed_updates(a2c, g, B, 5)
+    a["a2c"] = dict(ms_per_update=ms, ms_median=statistics.median(ms),
+                    env_steps_per_s=B * T / (statistics.median(ms) / 1e3),
+                    loss=float(m["loss"]), ret=float(m["return"]),
+                    profile_one_update=profile_calls(
+                        lambda: a2c.update(g, B), n=1))
+    ppo = PPO(env, cartpole("cuda"), rollout_len=T, epochs=4,
+              num_minibatches=2)
+    ms, m = timed_updates(ppo, g, B, 2)
+    a["ppo"] = dict(epochs=4, num_minibatches=2, ms_per_update=ms,
+                    env_steps_per_s=B * T / (statistics.median(ms) / 1e3),
+                    loss=float(m["loss"]),
+                    profile_one_update=profile_calls(
+                        lambda: ppo.update(g, B), n=1))
+    # the replay's remat, timed in turns on one trajectory
+    remat_ms = {}
+    chosen = wrappers.TRAIN_REMAT_CHUNK
+    try:
+        for _ in range(3):
+            for K in (None, 16, 8, None):
+                wrappers.TRAIN_REMAT_CHUNK = K
+                _, secs = timed(lambda: a2c.apply(a2c.loss(traj)[0]))
+                remat_ms.setdefault(str(K), []).append(1e3 * secs)
+    finally:
+        wrappers.TRAIN_REMAT_CHUNK = chosen
+    a["replay_backward_ms_by_remat_chunk"] = {
+        k: dict(ms=v, median=statistics.median(v)) for k, v in
+        remat_ms.items()}
+    a["train_remat_chunk_in_use"] = chosen
+    row["cartpole"] = a
+
+    # (b) the recall task learns at graph size 5
+    renv = RecallEnv(num_symbols=2, horizon=4, noise_dim=2)
+    obs = renv.obs_dim
+
+    def recall(device, **kw):
+        cfg = dict(graph_size=5, gnn_input_size=16, gnn_output_size=16,
+                   edge_selectors=TemporalBackedge([1]))
+        cfg.update(kw)
+        return GCMActorCritic(obs, 2, 2, device=device,
+                              generator=torch.Generator().manual_seed(seed),
+                              **cfg)
+
+    pol_b = recall("cuda", use_prev_action=True)
+    trainer = A2C(renv, pol_b, lr=8e-3, entropy_coef=0.003)
+    history, secs = timed(lambda: trainer.train(g, updates=150, B=32))
+    early, late = float(np.mean(history[:10])), float(np.mean(history[-10:]))
+    check(late > max(0.62, early + 0.05),
+          f"recall did not learn: early={early:.3f} late={late:.3f}")
+    row["recall_learns"] = dict(updates=150, B=32, graph_size=5,
+                                early=early, late=late,
+                                ms_per_update=1e3 * secs / 150)
+
+    # (c) the sparse policy: one update against a CPU copy
+    def sparse(device):
+        return SparseGCMActorCritic(
+            obs, 2, 2, graph_size=8, max_edges=64, gnn_input_size=16,
+            gnn_output_size=16, edge_selectors=TemporalEdge([1]),
+            device=device, generator=torch.Generator().manual_seed(seed))
+
+    renv_cpu = RecallEnv(num_symbols=2, horizon=4, noise_dim=2, device="cpu")
+    pol_c = sparse("cuda")
+    sa2c = A2C(renv, pol_c)
+    row["sparse_a2c"] = grads_vs_cpu(
+        "sparse a2c", sa2c, A2C(renv_cpu, cpu_copy(pol_c, sparse)),
+        sa2c.collect(g, 32))
+
+    # (d) the trained recall policy served. A request carries no previous
+    # action, so it is served with the neutral action 0 folded into the
+    # preprocessor: x @ W = obs @ W[:obs] + one_hot(0) @ W[obs:] = obs @
+    # W[:obs] + W[obs], into the bias; the same function of the
+    # observations as the trained policy fed action 0
+    served = recall("cuda")
+    weights = dict(pol_b.state_dict())
+    kernel = weights.pop("core.preprocessor.blocks.0.kernel")
+    weights["core.preprocessor.blocks.0.kernel"] = kernel[:obs]
+    weights["core.preprocessor.blocks.0.bias"] = (
+        weights["core.preprocessor.blocks.0.bias"] + kernel[obs])
+    served.load_state_dict(weights)
+    srv = SessionServer.from_policy(served, capacity=256)
+    ref = SessionServer.from_policy(cpu_copy(served, recall), capacity=256)
+    rng = np.random.default_rng(seed + 70)
+    worst, step_s = 0.0, []
+    for tick in range(60):
+        reqs = {f"s{i}": rng.standard_normal(obs).astype(np.float32)
+                for i in range(256) if rng.random() < 0.5}
+        out, secs = timed(lambda: srv.step(reqs))
+        step_s.append(secs)
+        want = ref.step(reqs)
+        for sid in reqs:
+            for k in ("logits", "value"):
+                check(bool(np.isfinite(out[sid][k]).all()),
+                      f"served {sid} {k}: non-finite")
+                worst = max(worst, float(np.abs(out[sid][k]
+                                                - want[sid][k]).max()))
+    check(worst <= TOL_MODEL, f"served policy differs from the CPU copy by "
+          f"{worst} > {TOL_MODEL}")
+    row["served_policy"] = dict(capacity=256, ticks=60,
+                                max_abs_err_vs_cpu=worst,
+                                us_per_tick_median=1e6 * statistics.median(
+                                    step_s))
+    emit("rl", seconds=time.perf_counter() - t_phase, **row)
+
+
 KERNEL_META = {
     "fused_dense_gnn": dict(
         source="gcm_tpu_torch/csrc/dense_gnn.cu",
@@ -2799,6 +3197,9 @@ def main() -> int:
                        "spmm_edge_list", "spmm_slots", "edge_weight_grad")),
         (options_phase, ("fused_dense_gnn", "spmm_edge_list", "spmm_slots")),
         (gate_phase, ("spmm_edge_list",)),
+        (ring_phase, ("fused_dense_gnn", "sddmm_threshold_row")),
+        (rl_phase, ("fused_dense_gnn", "fused_dense_gnn_bwd",
+                    "spmm_edge_list")),
     ]
     launches = dict.fromkeys(wrappers, 0)
     for phase, kernels in paths:

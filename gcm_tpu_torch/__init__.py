@@ -3,7 +3,9 @@
 Plain tensor code is PyTorch; the graph-conv, SpMM and score-row kernels,
 and the backwards of the graph-conv stack and of the SpMM edge weights, are
 hand-written CUDA for sm_90a (csrc/), built with nvcc into `_build/` at
-first use. The train steps (train/) train both cores through them. Entry
+first use. The train steps (train/) train both cores through them, and the
+RL stack (rl/: environments, actor-critic policies over the ring, dense and
+sparse cores, A2C and PPO) trains policies on the card. Entry
 points run on the CUDA card unless given device="cpu", where every kernel
 takes its plain PyTorch version. This package imports neither JAX nor
 the gcm_tpu package.
@@ -32,6 +34,7 @@ from gcm_tpu_torch.models.positional import (PositionalEncoding,
                                              RelativePositionalEncoding,
                                              sincos_table)
 from gcm_tpu_torch.models.presets import readme_dense_gcm, readme_sparse_gcm
+from gcm_tpu_torch.models.ring_gcm import RingDenseGCM, RingGraphState
 from gcm_tpu_torch.models.sparse_gcm import SparseGCM
 from gcm_tpu_torch.nn.dense_conv import (DenseGCNConv, DenseGNN,
                                          DenseGraphConv)
@@ -45,32 +48,45 @@ from gcm_tpu_torch.ops.cuda.sddmm import (sddmm_threshold_row,
 from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
 from gcm_tpu_torch.ops.cuda.spmm_slots import (bucket_sink_slots,
                                                check_slot_overflow, spmm_slots)
+from gcm_tpu_torch.rl.a2c import A2C, discounted_returns
+from gcm_tpu_torch.rl.distributions import Categorical, DiagGaussian
+from gcm_tpu_torch.rl.env import (CartPoleEnv, ContinuousRecallEnv,
+                                  RecallEnv, TMazeEnv)
+from gcm_tpu_torch.rl.ppo import PPO, gae
+from gcm_tpu_torch.rl.wrappers import GCMActorCritic, SparseGCMActorCritic
 from gcm_tpu_torch.serve.sessions import SessionServer
 from gcm_tpu_torch.train import (make_dense_supervised_step,
                                  make_sparse_supervised_step)
+from gcm_tpu_torch.utils.debug import grad_norms
 from gcm_tpu_torch.utils.packing import pack_hidden, unpack_hidden
-from gcm_tpu_torch.weights import (load_jax_params, named_from_jax,
+from gcm_tpu_torch.weights import (jax_param_tree, jax_paths,
+                                   load_jax_params, named_from_jax,
+                                   ring_state_from_numpy, ring_state_to_numpy,
                                    sparse_state_from_numpy,
                                    sparse_state_to_numpy, state_from_numpy,
                                    state_to_numpy)
 
 __all__ = [
-    "CosineEdge", "DenseEdge", "DenseGCM", "DenseGCNConv", "DenseGNN",
-    "DenseGraphConv", "DenseGraphState", "Distance", "EdgeChain",
-    "EuclideanEdge", "GCNConv", "GraphConv", "LayerNorm", "LearnedEdge",
-    "Linear", "MLP", "PositionalEncoding", "RelativePositionalEncoding",
-    "SessionServer", "SparseEdgeChain", "SparseGCM", "SparseGNN",
-    "SparseGraphState", "SparseLearnedEdge", "SpatialEdge",
-    "SpatialKNNEdge", "SpatialRadiusEdge", "TemporalBackedge",
+    "A2C", "CartPoleEnv", "Categorical", "ContinuousRecallEnv", "CosineEdge",
+    "DenseEdge", "DenseGCM", "DenseGCNConv", "DenseGNN", "DenseGraphConv",
+    "DenseGraphState", "DiagGaussian", "Distance", "EdgeChain",
+    "EuclideanEdge", "GCMActorCritic", "GCNConv", "GraphConv", "LayerNorm",
+    "LearnedEdge", "Linear", "MLP", "PPO", "PositionalEncoding", "RecallEnv",
+    "RelativePositionalEncoding", "RingDenseGCM", "RingGraphState",
+    "SessionServer", "SparseEdgeChain", "SparseGCM", "SparseGCMActorCritic",
+    "SparseGNN", "SparseGraphState", "SparseLearnedEdge", "SpatialEdge",
+    "SpatialKNNEdge", "SpatialRadiusEdge", "TMazeEnv", "TemporalBackedge",
     "TemporalEdge", "bucket_sink_slots", "check_slot_overflow",
     "coalesce_edges", "default_edge_network", "dense_fused_supported",
-    "dense_initial_state", "dense_to_sparse", "fused_dense_gnn",
-    "fused_dense_graph_conv", "load_jax_params",
+    "dense_initial_state", "dense_to_sparse", "discounted_returns",
+    "fused_dense_gnn", "fused_dense_graph_conv", "gae", "grad_norms",
+    "jax_param_tree", "jax_paths", "load_jax_params",
     "make_dense_supervised_step", "make_sparse_supervised_step",
-    "named_from_jax", "pack_hidden", "readme_dense_gcm",
-    "readme_sparse_gcm", "reset_where", "resolve_device",
-    "sddmm_threshold_row", "sddmm_threshold_row_current", "sincos_table",
-    "sparse_initial_state", "sparse_state_from_numpy",
-    "sparse_state_to_numpy", "sparse_to_dense", "spmm_edge_list",
-    "spmm_slots", "state_from_numpy", "state_to_numpy", "unpack_hidden",
+    "named_from_jax", "pack_hidden", "readme_dense_gcm", "readme_sparse_gcm",
+    "reset_where", "resolve_device", "ring_state_from_numpy",
+    "ring_state_to_numpy", "sddmm_threshold_row",
+    "sddmm_threshold_row_current", "sincos_table", "sparse_initial_state",
+    "sparse_state_from_numpy", "sparse_state_to_numpy", "sparse_to_dense",
+    "spmm_edge_list", "spmm_slots", "state_from_numpy", "state_to_numpy",
+    "unpack_hidden",
 ]

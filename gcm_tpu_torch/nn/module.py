@@ -23,13 +23,22 @@ def _uniform(shape, bound, generator) -> torch.Tensor:
     return torch.empty(shape).uniform_(-bound, bound, generator=generator)
 
 
+def normc(shape, std, generator) -> torch.Tensor:
+    """rllib's normc initialiser (the policy heads'): standard normal, each
+    output column scaled to L2 norm `std`."""
+    w = torch.randn(shape, generator=generator)
+    norm = torch.sqrt(torch.sum(w * w, dim=0, keepdim=True))
+    return w * std / torch.clamp_min(norm, 1e-12)
+
+
 class Linear(nn.Module):
     """init: 'torch' (kaiming-uniform, as above), 'glorot' (uniform in
-    +-sqrt(6 / (in + out)), GCNConv's) or 'orthogonal' (the sparse
-    LearnedEdge's scorer; the bias as 'torch')."""
+    +-sqrt(6 / (in + out)), GCNConv's), 'orthogonal' (the sparse
+    LearnedEdge's scorer) or ("normc", std) (the policy heads'); the bias
+    as 'torch' for every init."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True, *,
-                 init: str = "torch", device=None,
+                 init="torch", device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         device = resolve_device(device)
@@ -37,13 +46,15 @@ class Linear(nn.Module):
         self.out_dim = out_dim
         # kaiming_uniform(a=sqrt(5)): gain * sqrt(3 / fan_in) = 1/sqrt(fan_in)
         bound = 1.0 / math.sqrt(in_dim) if in_dim > 0 else 0.0
-        if init == "glorot":
-            w_bound = math.sqrt(6.0 / (in_dim + out_dim))
+        if isinstance(init, tuple) and len(init) == 2 and init[0] == "normc":
+            kernel = normc((in_dim, out_dim), init[1], generator)
+        elif init == "glorot":
+            kernel = _uniform((in_dim, out_dim),
+                              math.sqrt(6.0 / (in_dim + out_dim)), generator)
         elif init in ("torch", "orthogonal"):
-            w_bound = bound
+            kernel = _uniform((in_dim, out_dim), bound, generator)
         else:
             raise ValueError(f"unknown init {init!r}")
-        kernel = _uniform((in_dim, out_dim), w_bound, generator)
         if init == "orthogonal":
             torch.nn.init.orthogonal_(kernel, generator=generator)
         self.kernel = nn.Parameter(kernel.to(device))

@@ -58,16 +58,56 @@ def check_aligned16(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
+GRID = 16  # the dense kernels' row tile
+
+
 def check_sizes(B: int, N: int, widths) -> None:
-    """The shapes the kernel takes (csrc/dense_gnn.cu::valid_stack)."""
+    """The shapes the kernel takes (csrc/dense_gnn.cu::valid_stack); the
+    wrappers pad a graph size off the grid first (`pad_graph`)."""
     if not 1 <= B <= 65535:
         raise ValueError(f"batch {B} outside 1..65535")
-    if N % 16 or not 16 <= N <= 1024:
-        raise ValueError(f"graph size {N} must be a multiple of 16 in 16..1024")
+    if N % GRID or not GRID <= N <= 1024:
+        raise ValueError(f"graph size {N} must be a multiple of {GRID} in "
+                         f"{GRID}..1024")
     if not 1 <= len(widths) - 1 <= 4:
         raise ValueError(f"{len(widths) - 1} layers; the kernel takes 1..4")
     if any(not 1 <= w <= 128 for w in widths):
         raise ValueError(f"feature widths {list(widths)} must be in 1..128")
+
+
+def grid_rows(N: int) -> int:
+    """N rounded up to the dense kernels' row tile."""
+    return -(-N // GRID) * GRID
+
+
+def pad_graph(x: torch.Tensor, adj: torch.Tensor, g=None):
+    """x [B, N, F], adj [B, N, N] (and a cotangent g [B, N, F_out]) padded
+    to N' = grid_rows(N) rows: zero rows for x and g, zero rows and columns
+    for adj. Exact for the dense stack: a padded column of adj is zero, so
+    no real row reads a padded row; in the backward the padded rows get a
+    zero cotangent at the last layer and, through adj^T's zero rows and
+    their own zero gz, at every layer below, so they add nothing to dW or
+    db. `unpad_rows` / `unpad_adj` take the real part back. N' == N
+    returns the inputs themselves."""
+    N = x.shape[1]
+    P = grid_rows(N) - N
+    if P == 0:
+        return (x, adj) if g is None else (x, adj, g)
+    x = torch.nn.functional.pad(x, (0, 0, 0, P))
+    adj = torch.nn.functional.pad(adj, (0, P, 0, P))
+    if g is None:
+        return x, adj
+    return x, adj, torch.nn.functional.pad(g, (0, 0, 0, P))
+
+
+def unpad_rows(t: torch.Tensor | None, N: int):
+    """The first N rows of a [B, N', F] result (None passes through)."""
+    return t if t is None or t.shape[1] == N else t[:, :N].contiguous()
+
+
+def unpad_adj(t: torch.Tensor | None, N: int):
+    """The real [B, N, N] block of a padded adjacency gradient."""
+    return t if t is None or t.shape[1] == N else t[:, :N, :N].contiguous()
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:

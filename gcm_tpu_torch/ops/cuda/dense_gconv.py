@@ -6,7 +6,7 @@ gcm_tpu/ops/pallas/dense_gconv.py):
 It shares its device code with the fused stack (csrc/dense_gnn.cu: 3xTF32
 products on the tensor cores; the one-layer case, where the rows are split
 over blocks of 32..128) but has its own C entry point and its own launch
-count.
+count. A graph size off the 16-row grid is padded, as the stack's.
 
 Differentiable in x, adj and the three parameters (JAX's
 `ops/dispatch.py::dense_graph_conv`): a tracked call goes through
@@ -19,8 +19,8 @@ from __future__ import annotations
 import torch
 
 from gcm_tpu_torch.ops.cuda._launch import (
-    ACT_CODES, check_aligned16, check_cuda, check_rc, check_sizes, needs_grad,
-    ptr, stream_of)
+    ACT_CODES, GRID, check_aligned16, check_cuda, check_rc, check_sizes,
+    needs_grad, pad_graph, ptr, stream_of, unpad_rows)
 from gcm_tpu_torch.ops.cuda.fused_gnn import (NEED_ADJ, NEED_PARAMS, NEED_X,
                                               _lib, fused_dense_gnn_bwd,
                                               fused_dense_gnn_plain)
@@ -34,6 +34,10 @@ def fused_dense_graph_conv_plain(x, adj, w_rel, b_rel, w_root,
 def _launch(x, adj, w_rel, b_rel, w_root, activation):
     if x.dim() != 3:
         raise ValueError(f"x must be [B, N, F], got {tuple(x.shape)}")
+    if x.shape[1] % GRID:  # off the kernel's row grid: padded exactly
+        N = x.shape[1]
+        return unpad_rows(_launch(*pad_graph(x, adj), w_rel, b_rel, w_root,
+                                  activation), N)
     B, N, F = x.shape
     Fo = w_rel.shape[-1]
     check_sizes(B, N, (F, Fo))

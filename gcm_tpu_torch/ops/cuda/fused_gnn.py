@@ -5,7 +5,10 @@ gcm_tpu/ops/pallas/fused_gnn.py).
 `fused_dense_gnn` launches the hand-written CUDA kernel
 (csrc/dense_gnn.cu: 3xTF32 products on the tensor cores, within 1e-5 of
 the float32 plain version) for CUDA tensors and takes the plain PyTorch
-version, `fused_dense_gnn_plain`, only for CPU tensors.
+version, `fused_dense_gnn_plain`, only for CPU tensors. Any graph size in
+1..1,024 launches: one off the kernel's 16-row grid is padded with zero
+rows and columns and the real rows sliced back out, exactly
+(`_launch.py::pad_graph`), forward and backward.
 
 Gradients flow to x, adj and every parameter. Where autograd tracks one of
 them, the call goes through `_FusedDenseGnn`, whose backward is
@@ -24,8 +27,9 @@ import torch
 
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.cuda._launch import (
-    ACT_CODES, apply_act, check_aligned16, check_cuda, check_rc, check_sizes,
-    needs_grad, ptr, stream_of)
+    ACT_CODES, GRID, apply_act, check_aligned16, check_cuda, check_rc,
+    check_sizes, grid_rows, needs_grad, pad_graph, ptr, stream_of, unpad_adj,
+    unpad_rows)
 
 NEED_X, NEED_ADJ, NEED_PARAMS = 1, 2, 4  # the backward's flags
 
@@ -128,6 +132,12 @@ def check_stack(x, adj, flat_params, acts) -> list[int]:
 
 
 def _launch(x, adj, flat_params, acts):
+    """Any N in 1..1024: an N off the kernel's 16-row grid is padded with
+    zero rows (and adjacency columns) and the real rows sliced back out,
+    exactly (`pad_graph`)."""
+    if x.dim() == 3 and x.shape[1] % GRID:
+        N = x.shape[1]
+        return unpad_rows(_launch(*pad_graph(x, adj), flat_params, acts), N)
     n_layers = len(acts)
     B, N, _ = x.shape
     widths = check_stack(x, adj, flat_params, acts)
@@ -225,13 +235,15 @@ def fused_dense_gnn_bwd_plan(widths, B, N, device, cluster=0):
     whether the blocks' rows stay in shared memory (onchip, else a global
     scratch), whether the adjacency and the weights stay resident, the
     chunk rows gk, shared-memory bytes a block, and how many blocks the
-    card holds at once in clusters of C. `cluster` (1, 2, 4, 8 or 16) asks
+    card holds at once in clusters of C (an N off the 16-row grid at its
+    padded size, as the wrapper launches it). `cluster` (1, 2, 4, 8 or 16) asks
     for that C in place of the planner's choice (0); None where the shape
     has no plan at that C."""
     widths = [int(w) for w in widths]
     out = (ctypes.c_int * len(BWD_PLAN_KEYS))()
     rc = _bwd_lib().gcm_dense_gnn_bwd_plan(
-        (ctypes.c_int * len(widths))(*widths), len(widths) - 1, B, N,
+        (ctypes.c_int * len(widths))(*widths), len(widths) - 1, B,
+        grid_rows(N),
         cluster, torch.device(device).index or 0, out)
     if rc == _NO_PLAN and cluster:
         return None
@@ -240,6 +252,12 @@ def fused_dense_gnn_bwd_plan(widths, B, N, device, cluster=0):
 
 
 def _launch_bwd(x, adj, flat_params, acts, g, need, cluster):
+    if x.dim() == 3 and x.shape[1] % GRID:  # off the grid: padded, as forward
+        N = x.shape[1]
+        xp, adjp, gp = pad_graph(x, adj, g)
+        dx, dadj, dparams = _launch_bwd(xp, adjp, flat_params, acts, gp,
+                                        need, cluster)
+        return unpad_rows(dx, N), unpad_adj(dadj, N), dparams
     n_layers = len(acts)
     B, N, _ = x.shape
     widths = check_stack(x, adj, flat_params, acts)

@@ -64,6 +64,25 @@ class SessionServer:
                           "evictions": 0}
 
     @classmethod
+    def from_policy(cls, policy, capacity: int, *, device=None):
+        """Serve a whole actor-critic policy (rl/wrappers.py): each tick
+        returns {"logits": [A], "value": scalar} per session. The policy
+        must not use the previous action (requests carry none). Runs on
+        `device`, by default the policy's."""
+        if policy.cfg.get("use_prev_action", False):
+            raise ValueError(
+                "serving tracks no per-session action history; build the "
+                "policy with use_prev_action=False")
+
+        def step_fn(obs, state):
+            logits, value, state = policy.step(obs, state)
+            return {"logits": logits, "value": value}, state
+
+        return cls(None, capacity, policy.obs_dim, step_fn=step_fn,
+                   initial_state=policy.initial_state(capacity),
+                   device=policy.device if device is None else device)
+
+    @classmethod
     def from_step(cls, step_fn, initial_state, obs_dim: int, *, device=None):
         """A server around a bare step callable and the matching
         capacity-sized initial state; no model object needed."""

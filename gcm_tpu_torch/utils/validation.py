@@ -56,3 +56,22 @@ def check_sparse_inputs(x, taus, state, graph_size: int, max_edges: int):
     _check(tuple(weights.shape) == (B, max_edges),
            f"weights must be [B, E={max_edges}], got {tuple(weights.shape)}")
     _check(tuple(t.shape) == (B,), f"t must be [B={B}], got {tuple(t.shape)}")
+
+
+def check_ring_inputs(x, state, graph_size: int):
+    """RingDenseGCM step contract: the dense shapes, but the state must be
+    a RingGraphState (a cursor t, not num_nodes)."""
+    _check(hasattr(state, "t") and not hasattr(state, "num_edges"),
+           f"RingDenseGCM expects a RingGraphState (has t); got "
+           f"{type(state).__name__}")
+    nodes, adj, weights, t = state
+    _check(x.dim() == 2, f"x must be [B, feat], got {tuple(x.shape)}")
+    B, F = x.shape
+    N = graph_size
+    _check(tuple(nodes.shape) == (B, N, F),
+           f"nodes must be [B={B}, N={N}, F={F}], got {tuple(nodes.shape)}")
+    _check(tuple(adj.shape) == (B, N, N),
+           f"adj must be [B={B}, N={N}, N={N}], got {tuple(adj.shape)}")
+    _check(tuple(t.shape) == (B,), f"t must be [B={B}], got {tuple(t.shape)}")
+    _check(not t.dtype.is_floating_point and t.dtype != torch.bool,
+           f"t must be integer, got {t.dtype}")

@@ -12,17 +12,19 @@ SparseEdgeChain's list), the aux selectors and positional encoders (`pe`,
 nothing is transposed. DenseGraphConv and GraphConv share one layout, so one
 tree loads into the README's dense and sparse models alike.
 
-`named_from_jax(model, tree)` maps any tree of that layout (parameters,
-their gradients, Adam's moments) onto the model's parameter names, so that
-gradients and updated parameters compare leaf by leaf.
+The actor-critic policies' tree is {"core", "logit", "value"}.
+`jax_param_tree(model)` is that layout with the port's parameters as its
+leaves, the one place that knows it: `named_from_jax(model, tree)` maps
+any tree of the layout (parameters, their gradients, Adam's moments) onto
+the model's parameter names, so that gradients and updated parameters
+compare leaf by leaf, and `jax_paths(model)` names each parameter by its
+JAX path.
 
-`state_from_numpy` / `sparse_state_from_numpy` and their `*_to_numpy`
-inverses carry the recurrent states across.
+`state_from_numpy` / `sparse_state_from_numpy` / `ring_state_from_numpy`
+and their `*_to_numpy` inverses carry the recurrent states across.
 """
 
 from __future__ import annotations
-
-import copy
 
 import numpy as np
 import torch
@@ -42,11 +44,13 @@ from gcm_tpu_torch.edges.temporal import TemporalBackedge
 from gcm_tpu_torch.models.dense_gcm import DenseGCM
 from gcm_tpu_torch.models.positional import (PositionalEncoding,
                                              RelativePositionalEncoding)
+from gcm_tpu_torch.models.ring_gcm import RingDenseGCM, RingGraphState
 from gcm_tpu_torch.models.sparse_gcm import SparseGCM
 from gcm_tpu_torch.nn.dense_conv import (DenseGCNConv, DenseGNN,
                                          DenseGraphConv)
 from gcm_tpu_torch.nn.module import MLP, LayerNorm, Linear
 from gcm_tpu_torch.nn.sparse_conv import GCNConv, GraphConv, SparseGNN
+from gcm_tpu_torch.rl.wrappers import GCMActorCritic, _FrozenMLP
 
 
 def _copy(param: torch.Tensor, value) -> None:
@@ -58,78 +62,119 @@ def _copy(param: torch.Tensor, value) -> None:
         param.copy_(value)
 
 
-def load_jax_params(module, params) -> None:
-    if isinstance(module, Linear):
-        _copy(module.kernel, params["kernel"])
-        if module.bias is not None:
-            _copy(module.bias, params["bias"])
-    elif isinstance(module, (DenseGraphConv, GraphConv)):
-        load_jax_params(module.lin_rel, params["lin_rel"])
-        load_jax_params(module.lin_root, params["lin_root"])
-    elif isinstance(module, (GCNConv, DenseGCNConv)):
-        load_jax_params(module.lin, params["lin"])
-        if module.bias is not None:
-            _copy(module.bias, params["bias"])
-    elif isinstance(module, (DenseGNN, SparseGNN, MLP)):
-        if len(params) != len(module.layers):
-            raise ValueError(f"{len(params)} parameter entries for "
-                             f"{len(module.layers)} layers")
-        for layer, p in zip(module.layers, params):
-            if isinstance(layer, torch.nn.Module) and p:
-                load_jax_params(layer, p)
-    elif isinstance(module, LayerNorm):
-        _copy(module.scale, params["scale"])
-        _copy(module.bias, params["bias"])
-    elif isinstance(module, (DenseGCM, SparseGCM)):
-        load_jax_params(module.gnn, params["gnn"])
+def jax_param_tree(module):
+    """The module's parameters in the layout of its JAX parameter tree
+    (dicts and lists), the parameters themselves as leaves; a part with no
+    parameters is {}. Both sides store linear kernels [in, out], so
+    nothing is transposed."""
+    if isinstance(module, GCMActorCritic):
+        return {"core": jax_param_tree(module.core),
+                "logit": jax_param_tree(module.logit_branch),
+                "value": jax_param_tree(module.value_branch)}
+    if isinstance(module, _FrozenMLP):
+        return jax_param_tree(module.inner)
+    if isinstance(module, (Linear, LayerNorm, DenseGCNConv, GCNConv)):
+        names = {Linear: ("kernel", "bias"), LayerNorm: ("scale", "bias"),
+                 DenseGCNConv: ("lin", "bias"), GCNConv: ("lin", "bias")}
+        out = {}
+        for n in names[type(module)]:
+            sub = getattr(module, n)
+            if isinstance(sub, torch.nn.Module):
+                out[n] = jax_param_tree(sub)
+            elif sub is not None:
+                out[n] = sub
+        return out
+    if isinstance(module, (DenseGraphConv, GraphConv)):
+        return {"lin_rel": jax_param_tree(module.lin_rel),
+                "lin_root": jax_param_tree(module.lin_root)}
+    if isinstance(module, (DenseGNN, SparseGNN, MLP)):
+        return [jax_param_tree(m) if isinstance(m, torch.nn.Module) else {}
+                for m in module.layers]
+    if isinstance(module, (DenseGCM, SparseGCM, RingDenseGCM)):
+        out = {"gnn": jax_param_tree(module.gnn)}
         for name in ("preprocessor", "edge_selectors", "aux_edge_selectors",
                      "positional_encoder"):
             sub = getattr(module, name, None)
             if sub is not None:
-                load_jax_params(sub, params.get(name, {}))
-    elif isinstance(module, (EdgeChain, SparseEdgeChain)):
-        if len(params) != len(module.selectors):
-            raise ValueError(f"{len(params)} parameter entries for "
-                             f"{len(module.selectors)} selectors")
-        for sel, p in zip(module.selectors, params):
-            load_jax_params(sel, p)
-    elif isinstance(module, LearnedEdge):
-        load_jax_params(module.edge_network, params["edge_network"])
-    elif isinstance(module, SparseLearnedEdge):
-        load_jax_params(module.edge_network, params["edge_network"])
-        if module.tau is not None:
-            _copy(module.tau, params["tau"])
-    elif isinstance(module, Distance) and module.learned:
-        _copy(module.dist_param, params["dist_param"])
-    elif isinstance(module, TemporalBackedge) and module.learned:
-        _copy(module.window, params["window"])
-    elif isinstance(module, (PositionalEncoding, RelativePositionalEncoding)):
-        _copy(module.pe, params["pe"])
+                out[name] = jax_param_tree(sub)
+        return out
+    if isinstance(module, (EdgeChain, SparseEdgeChain)):
+        return [jax_param_tree(s) for s in module.selectors]
+    if isinstance(module, (LearnedEdge, SparseLearnedEdge)):
+        out = {"edge_network": jax_param_tree(module.edge_network)}
+        if getattr(module, "tau", None) is not None:
+            out["tau"] = module.tau
+        return out
+    if isinstance(module, Distance) and module.learned:
+        return {"dist_param": module.dist_param}
+    if isinstance(module, TemporalBackedge) and module.learned:
+        return {"window": module.window}
+    if isinstance(module, (PositionalEncoding, RelativePositionalEncoding)):
+        out = {"pe": module.pe}
         if getattr(module, "reproject", None) is not None:
-            load_jax_params(module.reproject, params["reproject"])
-    elif isinstance(module, (TemporalBackedge, TemporalEdge, DenseEdge,
-                             Distance, SpatialRadiusEdge, SpatialKNNEdge)):
-        if params:
-            raise ValueError(f"{type(module).__name__} has no parameters to "
-                             "load")
+            out["reproject"] = jax_param_tree(module.reproject)
+        return out
+    if isinstance(module, (TemporalBackedge, TemporalEdge, DenseEdge,
+                           Distance, SpatialRadiusEdge, SpatialKNNEdge)):
+        return {}
+    raise TypeError(f"no JAX parameter layout known for "
+                    f"{type(module).__name__}")
+
+
+def _has_params(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return any(_has_params(v) for v in tree)
+    return True
+
+
+def _leaves(tree, jax_tree=None, path=()):
+    """(path, parameter, the JAX tree's leaf at that path or None) for every
+    parameter of a `jax_param_tree`, walking `jax_tree` beside it (parts
+    without parameters are not looked up); a list of another length than
+    the module's raises."""
+    if isinstance(tree, (dict, list)):
+        if isinstance(tree, list) and jax_tree is not None \
+                and len(jax_tree) != len(tree):
+            raise ValueError(f"{'/'.join(path)}: {len(jax_tree)} parameter "
+                             f"entries for {len(tree)} layers or selectors")
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, sub in items:
+            if _has_params(sub):
+                yield from _leaves(sub, None if jax_tree is None
+                                   else jax_tree[k], path + (str(k),))
     else:
-        raise TypeError(f"no JAX parameter layout known for "
-                        f"{type(module).__name__}")
+        yield path, tree, jax_tree
+
+
+def load_jax_params(module, params) -> None:
+    """Copy a JAX parameter tree into the module's parameters."""
+    for _, param, value in _leaves(jax_param_tree(module), params):
+        _copy(param, value)
+
+
+def jax_paths(module) -> dict[str, str]:
+    """{parameter name: its path in the JAX tree}, the path's keys joined
+    by "/" as the JAX package's `utils/debug.py::grad_norms` names them
+    (e.g. "core/gnn/0/lin_rel/kernel")."""
+    names = {id(p): name for name, p in module.named_parameters()}
+    return {names[id(p)]: "/".join(path)
+            for path, p, _ in _leaves(jax_param_tree(module))}
 
 
 def named_from_jax(module, tree) -> dict[str, torch.Tensor]:
     """{name: tensor} over module.named_parameters(), each leaf taken from
-    `tree`, a JAX tree in the layout `load_jax_params` reads. Raises if a
-    parameter has no leaf in the tree."""
-    clone = copy.deepcopy(module)
-    with torch.no_grad():
-        for p in clone.parameters():
-            p.fill_(float("nan"))
-    load_jax_params(clone, tree)
-    out = {name: p.detach() for name, p in clone.named_parameters()}
-    missing = [name for name, t in out.items() if bool(t.isnan().any())]
-    if missing:
-        raise ValueError(f"parameters with no leaf in the tree: {missing}")
+    `tree`, a JAX tree in the layout `load_jax_params` reads (parameters,
+    their gradients, Adam's moments)."""
+    names = {id(p): name for name, p in module.named_parameters()}
+    out = {}
+    for _, param, value in _leaves(jax_param_tree(module), tree):
+        t = torch.tensor(np.asarray(value), dtype=param.dtype)
+        if tuple(t.shape) != tuple(param.shape):
+            raise ValueError(f"shape {tuple(t.shape)} does not fit "
+                             f"parameter of shape {tuple(param.shape)}")
+        out[names[id(param)]] = t
     return out
 
 
@@ -164,3 +209,29 @@ def sparse_state_from_numpy(state, device) -> SparseGraphState:
 
 def sparse_state_to_numpy(state: SparseGraphState) -> SparseGraphState:
     return SparseGraphState(*(t.detach().cpu().numpy() for t in state))
+
+
+def ring_state_from_numpy(state, device) -> RingGraphState:
+    """A RingGraphState (or any 4-tuple in its field order) of arrays ->
+    the port's RingGraphState on `device`; the adjacency keeps a bfloat16
+    dtype (JAX's adj_dtype), else float32."""
+    nodes, adj, weights, t = state
+    adj_dtype = (torch.bfloat16 if str(getattr(adj, "dtype", "")) ==
+                 "bfloat16" else torch.float32)
+    return RingGraphState(
+        nodes=torch.tensor(np.asarray(nodes), dtype=torch.float32,
+                           device=device),
+        adj=torch.tensor(np.asarray(adj, np.float32), dtype=adj_dtype,
+                         device=device),
+        weights=torch.tensor(np.asarray(weights), dtype=torch.float32,
+                             device=device),
+        t=torch.tensor(np.asarray(t), dtype=torch.int32, device=device),
+    )
+
+
+def ring_state_to_numpy(state: RingGraphState) -> RingGraphState:
+    """The port's RingGraphState as numpy arrays (a bfloat16 adjacency as
+    float32, which holds its values exactly)."""
+    return RingGraphState(*(t.detach().cpu().float().numpy()
+                            if t.dtype == torch.bfloat16
+                            else t.detach().cpu().numpy() for t in state))

@@ -82,6 +82,18 @@ def _cpu_model():
                        edge_selectors=g.CosineEdge(0.5)),
     lambda: run_sweep(),
     lambda: probe_dynamic_gather(),
+    lambda: g.RingDenseGCM(g.DenseGNN([g.DenseGraphConv(4, 4,
+                                                        device="cpu")]),
+                           edge_selectors=g.TemporalBackedge([1])),
+    lambda: g.GCMActorCritic(4, 2, 2, edge_selectors=g.TemporalBackedge([1])),
+    lambda: g.SparseGCMActorCritic(4, 2, 2,
+                                   edge_selectors=g.TemporalEdge([1])),
+    lambda: g.A2C(g.RecallEnv(), g.GCMActorCritic(9, 4, 4)),
+    lambda: g.PPO(g.RecallEnv(), g.GCMActorCritic(9, 4, 4)),
+    lambda: g.TMazeEnv(),
+    lambda: g.CartPoleEnv(masked_velocity=True),
+    lambda: g.RecallEnv(),
+    lambda: g.ContinuousRecallEnv(),
 ], ids=["readme_dense_gcm", "Linear", "DenseGraphConv", "DenseGCM",
         "SessionServer", "resolve_device", "readme_sparse_gcm", "GraphConv",
         "GCNConv", "SparseGCM", "LayerNorm", "LearnedEdge",
@@ -89,7 +101,9 @@ def _cpu_model():
         "CosineEdge_learned", "SpatialEdge_learned",
         "TemporalBackedge_learned", "PositionalEncoding",
         "RelativePositionalEncoding", "DenseGCM_cosine", "run_sweep",
-        "probe_dynamic_gather"])
+        "probe_dynamic_gather", "RingDenseGCM", "GCMActorCritic",
+        "SparseGCMActorCritic", "A2C", "PPO", "TMazeEnv", "CartPoleEnv",
+        "RecallEnv", "ContinuousRecallEnv"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")

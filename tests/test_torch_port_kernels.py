@@ -122,6 +122,59 @@ def test_shapes_the_kernel_does_not_take_raise(sizes):
         check_sizes(sizes["B"], sizes["N"], sizes["widths"])
 
 
+def test_off_grid_padding_is_exact():
+    """The wrappers launch an N off the kernels' 16-row grid padded
+    (`pad_graph`: zero rows of x and g, zero rows and columns of adj) and
+    slice the real rows back out. Through the plain versions on the CPU:
+    the forward stack and the one layer at N = 1, 5, 65 and 100, and the
+    backward (dx, dadj, every parameter's gradient) at N = 5 and 65, padded
+    and unpadded, against the unpadded call, within 1e-5."""
+    from gcm_tpu_torch.ops.cuda._launch import (grid_rows, pad_graph,
+                                                unpad_adj, unpad_rows)
+    from gcm_tpu_torch.ops.cuda.fused_gnn import (
+        NEED_ADJ, NEED_PARAMS, NEED_X, fused_dense_gnn_bwd_plain,
+        fused_dense_gnn_plain)
+
+    acts = ("tanh", "relu")
+    for n in (1, 5, 65, 100):
+        rng = np.random.default_rng(n)
+        x = torch.from_numpy(rng.standard_normal((2, n, 6))
+                             .astype(np.float32))
+        adj = torch.from_numpy((rng.random((2, n, n)) < 0.4)
+                               .astype(np.float32) * rng.random((2, n, n))
+                               .astype(np.float32))
+        flat = [torch.from_numpy(rng.uniform(-0.4, 0.4, s).astype(np.float32))
+                for s in ((6, 7), (7,), (6, 7), (7, 5), (5,), (7, 5))]
+        g = torch.from_numpy(rng.standard_normal((2, n, 5))
+                             .astype(np.float32))
+        xp, adjp, gp = pad_graph(x, adj, g)
+        assert xp.shape[1] == grid_rows(n) and grid_rows(n) % 16 == 0
+        assert not adjp[:, n:].any() and not adjp[:, :, n:].any()
+        want = fused_dense_gnn_plain(x, adj, flat, acts)
+        got = unpad_rows(fused_dense_gnn_plain(xp, adjp, flat, acts), n)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL,
+                                   rtol=0, err_msg=f"stack N={n}")
+        one = dense_gconv.fused_dense_graph_conv_plain
+        np.testing.assert_allclose(
+            unpad_rows(one(xp, adjp, *flat[:3], "tanh"), n).numpy(),
+            one(x, adj, *flat[:3], "tanh").numpy(), atol=ATOL, rtol=0,
+            err_msg=f"one layer N={n}")
+        if n not in (5, 65):
+            continue
+        need = NEED_X | NEED_ADJ | NEED_PARAMS
+        wdx, wdadj, wdp = fused_dense_gnn_bwd_plain(x, adj, flat, acts, g,
+                                                    need)
+        dx, dadj, dp = fused_dense_gnn_bwd_plain(xp, adjp, flat, acts, gp,
+                                                 need)
+        for got, want, name in [(unpad_rows(dx, n), wdx, "dx"),
+                                (unpad_adj(dadj, n), wdadj, "dadj")] + [
+                (a, b, f"dparam {i}") for i, (a, b) in enumerate(zip(dp,
+                                                                    wdp))]:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL,
+                                       rtol=0, err_msg=f"{name} N={n}")
+        assert not dx[:, n:].any(), "a padded row got a gradient"
+
+
 def _forward_only_calls():
     """name -> call(x) for each wrapper that stays forward only (its JAX
     counterpart has no VJP either), x a [2, 128, 4] input."""
