@@ -97,7 +97,26 @@ Phases, one JSON line each:
    graph size 5 (off the 16-row grid), which must learn as the JAX
    package's test demands; one sparse-policy update against a CPU copy;
    the trained policy served by SessionServer.from_policy against a CPU
-   copy (1e-4).
+   copy (1e-4);
+15. host: the host-stepped path (rl/external.py) at the JAX package's
+   examples/train_external_env.py sizes, SparseGCMActorCritic (gnn 32,
+   TemporalEdge([1]), graph T_max + 1, previous actions) on the native
+   CartPole pool (16 envs, horizon 24) and a host T-maze pool (16 envs):
+   greedy collection equal to a CPU copy's (buffer samples bitwise), one
+   update's loss and gradients against the CPU copy (1e-5), launches a
+   tick and an update, collect ticks/s, env steps/s and update ms over a
+   few updates, and the update loop fed inline and through
+   prefetch_to_device (data/prefetch.py), ms per update each way;
+16. nav: NavActorCritic at examples/train_nav.py's sizes (16
+   PointGoalNav envs, horizon 24, max_verts 26, hidden 32, k 8, r 2.5):
+   collect through NavGCMIncremental == replay through NavGCM (1e-5), the
+   replay's loss and gradients against a CPU copy (1e-4; the adjacency
+   equal but for entries within 1e-5 of their cut, then teacher-forced),
+   fused_dense_graph_conv 2 a replay forward and none a collect tick,
+   fused_dense_gnn_bwd 2 calls an update, the nav gate (both cores' tau = 1
+   tick and whole window at B = 16, V = 32..1,024: the rule for
+   models/nav_gcm.py::NAV_INCREMENTAL_MIN_V) and 30 updates of training
+   with their early and late collect returns.
 Phase 3 also holds spmm_edge_list and spmm_slots (bitwise: kernel and
 plain version add in the same order; slots also with sources outside their
 windows) against their plain versions beside one torch.sparse.mm call on a
@@ -146,7 +165,7 @@ tiles and splits at the sweep's point), beside one
 torch.sparse.sampled_addmm. The dense kernels and the stack backward also
 run at graph sizes off their 16-row grid (N = 5, 65, 100), which the
 wrappers pad and slice, each against its plain version at the unpadded N.
-Phases 4-14 each run with every launch count set to 0 just before and
+Phases 4-16 each run with every launch count set to 0 just before and
 read just after; each must launch the kernels of its path.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero and prints no result.
@@ -456,6 +475,10 @@ KERNEL_CASES = [
     ("fused_dense_graph_conv", 32, 5, (16, 16), ("tanh",), "0/1", False),
     ("fused_dense_graph_conv", 64, 65, (64, 64), (None,), "weighted", False),
     ("fused_dense_graph_conv", 16, 100, (32, 32), ("relu",), "0/1", False),
+    # the nav replay's two convs (rl/nav.py at examples/train_nav.py's
+    # sizes: B_train 32, max_verts 26, features 5 + pose 3 -> 32 -> 32)
+    ("fused_dense_graph_conv", 32, 26, (8, 32), (None,), "0/1", False),
+    ("fused_dense_graph_conv", 32, 26, (32, 32), (None,), "0/1", False),
 ]
 
 
@@ -587,6 +610,8 @@ DENSE_BWD_CASES = [
     ("N=65", 64, 65, (64, 64, 64), ("tanh", "tanh"), False, "weighted",
      False),
     ("N=100", 16, 100, (32, 32, 32), ("relu", "tanh"), True, "0/1", False),
+    # the nav replay's convs' backward (V = 26; the mask takes no gradient)
+    ("nav V=26", 32, 26, (32, 32), (None,), False, "0/1", False),
 ]
 # what a block of the backward keeps in shared memory, as its plan says:
 # its rows (else they are in global scratch), the adjacency, the weights;
@@ -3026,6 +3051,512 @@ def rl_phase(card: str, seed: int = 0):
     emit("rl", seconds=time.perf_counter() - t_phase, **row)
 
 
+# -- phase 15: the host-stepped path ------------------------------------------
+
+class HostTMaze:
+    """A host T-maze in numpy (the JAX package's examples/
+    train_external_env.py::PyTMaze, which that script trains): the goal
+    side shows only at the corridor's start; at the junction the agent must
+    turn the remembered way. Actions 0 forward, 1 left, 2 right."""
+
+    obs_dim = 4
+    num_actions = 3
+
+    def __init__(self, corridor_length=4, rng=None):
+        self.L = corridor_length
+        self.rng = rng or np.random.default_rng(0)
+
+    def _obs(self):
+        at_start, at_junction = self.pos == 0, self.pos >= self.L
+        return np.array([at_start and self.goal == 0,
+                         at_start and self.goal == 1,
+                         not at_junction, at_junction], np.float32)
+
+    def reset(self):
+        self.goal = int(self.rng.integers(0, 2))
+        self.pos = 0
+        self.t = 0
+        return self._obs()
+
+    def step(self, action):
+        at_junction = self.pos >= self.L
+        self.t += 1
+        if at_junction and action in (1, 2):
+            return self._obs(), (4.0 if action - 1 == self.goal else -0.1), \
+                True
+        if action == 0 and not at_junction:
+            self.pos += 1
+            return self._obs(), 0.0, self.t > self.L + 2
+        return self._obs(), -0.1, self.t > self.L + 2
+
+
+def host_pool(kind: str, seed: int):
+    """(pool, T_max) of examples/train_external_env.py: 16 envs of the
+    native CartPole (horizon 24, reward 0.1) or of the host T-maze
+    (corridor 4)."""
+    from gcm_tpu_torch import HostEnvPool, NativeCartPolePool
+
+    if kind == "native_cartpole":
+        return NativeCartPolePool(16, horizon=24, reward_scale=0.1,
+                                  seed=100 + seed), 24
+    return HostEnvPool([HostTMaze(4, np.random.default_rng(100 + seed + i))
+                        for i in range(16)]), 8
+
+
+def same_buffers(label, a, b, B, T_max):
+    check((a.num_episodes, a.total_steps) == (b.num_episodes, b.total_steps),
+          f"{label}: {a.num_episodes} episodes / {a.total_steps} steps, CPU "
+          f"copy {b.num_episodes} / {b.total_steps}")
+    for seed in range(3):
+        for x, y in zip(a.sample(B, T_max, seed), b.sample(B, T_max, seed)):
+            check(np.array_equal(x, y), f"{label}: buffer samples differ "
+                  "from the CPU copy's")
+
+
+def a2c_grads(policy, batch, value_coef, entropy_coef, state):
+    """The masked A2C loss of one batch through `policy` from `state` and
+    every parameter's gradient (no step)."""
+    from gcm_tpu_torch.rl.external import masked_a2c_loss
+
+    policy.zero_grad(set_to_none=True)
+    logits, values, _ = policy(batch["obs"], state,
+                               prev_actions=batch["prev_actions"],
+                               taus=batch["taus"])
+    loss, _ = masked_a2c_loss(logits, values, batch, value_coef,
+                              entropy_coef)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad for n, p in
+                                  policy.named_parameters()}
+
+
+def grads_close(label, got, want, tol):
+    (loss, grads), (want_loss, want_grads) = got, want
+    errs = [abs(loss - want_loss)]
+    for n, g in grads.items():
+        check(g is not None and bool(torch.isfinite(g).all()),
+              f"{label}: gradient of {n} missing or non-finite")
+        errs.append(float((g.cpu() - want_grads[n]).abs().max()))
+    worst = max(errs)
+    check(worst <= tol, f"{label}: loss or gradients differ from the CPU "
+          f"copy by {worst} > {tol}")
+    return dict(loss=loss, max_abs_err_vs_cpu=worst, params=len(grads))
+
+
+def counted(fn, *wrappers):
+    """fn()'s result and the launches of each wrapper during it."""
+    before = [w.launches for w in wrappers]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [w.launches - b for w, b in zip(wrappers, before)]
+
+
+def spread(ms):
+    return dict(ms=ms, median=statistics.median(ms), min=min(ms),
+                max=max(ms))
+
+
+def host_phase(card: str, seed: int = 0, B_train: int = 32,
+               updates: int = 5, fed: int = 20):
+    """The host-stepped path (rl/external.py) at examples/
+    train_external_env.py's sizes: SparseGCMActorCritic (gnn 32 -> 32,
+    TemporalEdge([1]), graph T_max + 1, 4 T_max edge slots, previous
+    actions), Adam(3e-3), the native replay buffer, on the native CartPole
+    pool and on a host T-maze pool, 16 envs each. For each pool: greedy
+    collection against a CPU copy (the same actions: the same episodes in
+    the buffer, samples bitwise); one update's loss and gradients against
+    the CPU copy on the same batch (1e-5); launches of spmm_edge_list and
+    edge_weight_grad a collect tick and an update; `updates` updates of
+    collect(2 T_max) -> sample(B_train) -> episode_batch_to_device ->
+    make_offline_a2c_update, timed (collect ticks/s, env steps/s, update
+    ms) with one profiled update (kernels, busy share); then `fed` updates
+    fed inline and through prefetch_to_device, in turns, ms per update
+    each way."""
+    from gcm_tpu_torch import (HostReplayBuffer, SparseGCMActorCritic,
+                               TemporalEdge, collect_host_episodes,
+                               episode_batch_to_device,
+                               make_offline_a2c_update, prefetch_to_device)
+    from gcm_tpu_torch.ops.cuda.edge_grad import edge_weight_grad
+    from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
+
+    t_phase = time.perf_counter()
+    row = dict(card=card)
+    for kind in ("native_cartpole", "tmaze"):
+        pool, T_max = host_pool(kind, seed)
+        cpu_pool, _ = host_pool(kind, seed)
+
+        def build(device):
+            return SparseGCMActorCritic(
+                pool.obs_dim, pool.num_actions, pool.num_actions,
+                graph_size=T_max + 1, gnn_input_size=32, gnn_output_size=32,
+                edge_selectors=TemporalEdge([1]), max_edges=4 * T_max,
+                use_prev_action=True, device=device,
+                generator=torch.Generator().manual_seed(seed))
+
+        pol = build("cuda")
+        pol_cpu = cpu_copy(pol, build)
+        r = dict(envs=len(pool), T_max=T_max, B_train=B_train)
+
+        # greedy collection: the same actions as the CPU copy
+        buf = HostReplayBuffer(200_000, pool.obs_dim)
+        buf_cpu = HostReplayBuffer(200_000, pool.obs_dim)
+        (n_eps, ret), (tick_spmm, tick_dw) = counted(
+            lambda: collect_host_episodes(pool, pol, buf, 2 * T_max,
+                                          greedy=True),
+            spmm_edge_list, edge_weight_grad)
+        want = collect_host_episodes(cpu_pool, pol_cpu, buf_cpu, 2 * T_max,
+                                     greedy=True)
+        check((n_eps, ret) == want, f"{kind}: greedy collection gave "
+              f"{(n_eps, ret)}, the CPU copy {want}")
+        check(n_eps > 0, f"{kind}: no episode ended")
+        same_buffers(kind, buf, buf_cpu, B_train, T_max)
+        r["greedy"] = dict(episodes=n_eps, mean_return=ret,
+                           same_actions_as_cpu=True)
+        r["launches_per_collect_tick"] = dict(
+            spmm_edge_list=tick_spmm / (2 * T_max),
+            edge_weight_grad=tick_dw / (2 * T_max))
+
+        # one update's loss and gradients against the CPU copy
+        sample = buf.sample(B_train, T_max, seed=seed)
+        batch = episode_batch_to_device(*sample, gamma=0.99)
+        batch_cpu = episode_batch_to_device(*sample, gamma=0.99,
+                                            device="cpu")
+        (got, (upd_spmm, upd_dw)) = counted(
+            lambda: a2c_grads(pol, batch, 0.5, 0.01,
+                              pol.initial_state(B_train)),
+            spmm_edge_list, edge_weight_grad)
+        r["grads"] = grads_close(
+            f"{kind} update", got,
+            a2c_grads(pol_cpu, batch_cpu, 0.5, 0.01,
+                      pol_cpu.initial_state(B_train)), TOL_KERNEL)
+        r["launches_per_update"] = dict(spmm_edge_list=upd_spmm,
+                                        edge_weight_grad=upd_dw)
+        check(upd_spmm > 0 and tick_spmm > 0,
+              f"{kind}: spmm_edge_list not launched on the host path")
+
+        # the training loop
+        opt = torch.optim.Adam(pol.parameters(), lr=3e-3)
+        update = make_offline_a2c_update(pol, opt)
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        collect_s, update_ms, eps = [], [], 0
+        for u in range(updates):
+            (n, _), secs = timed(lambda: collect_host_episodes(
+                pool, pol, buf, 2 * T_max, g))
+            collect_s.append(secs)
+            eps += n
+            metrics, secs = timed(lambda: update(episode_batch_to_device(
+                *buf.sample(B_train, T_max, seed=u), gamma=0.99)))
+            update_ms.append(1e3 * secs)
+            check(bool(torch.isfinite(metrics["loss"])),
+                  f"{kind}: non-finite loss")
+        ticks = updates * 2 * T_max
+        r["train"] = dict(
+            updates=updates, episodes=eps,
+            collect_ticks_per_s=ticks / sum(collect_s),
+            env_steps_per_s=ticks * len(pool) / sum(collect_s),
+            update_ms=spread(update_ms),
+            profile_one_update=profile_calls(lambda: update(
+                episode_batch_to_device(*buf.sample(B_train, T_max, seed=0),
+                                        gamma=0.99)), n=1))
+
+        # the update loop fed inline and through the prefetch, in turns
+        def samples():
+            for u in range(fed):
+                obs, acts, rews, taus = buf.sample(B_train, T_max, seed=u)
+                yield {"obs": obs, "acts": acts, "rews": rews, "taus": taus}
+
+        def inline():
+            for s in samples():
+                update(episode_batch_to_device(
+                    s["obs"], s["acts"], s["rews"], s["taus"], gamma=0.99))
+
+        def prefetched():
+            for s in prefetch_to_device(samples(), size=2):
+                update(episode_batch_to_device(
+                    s["obs"], s["acts"], s["rews"], s["taus"], gamma=0.99))
+
+        fed_ms = {"inline": [], "prefetch": []}
+        for name in ("inline", "prefetch", "prefetch", "inline"):
+            _, secs = timed(inline if name == "inline" else prefetched)
+            fed_ms[name].append(1e3 * secs / fed)
+        r["fed_ms_per_update"] = {k: dict(ms=v, mean=statistics.mean(v))
+                                  for k, v in fed_ms.items()}
+        row[kind] = r
+    emit("host", seconds=time.perf_counter() - t_phase, **row)
+
+
+# -- phase 16: the navigation memory ------------------------------------------
+
+# the JAX package's examples' V = 26 pads to 32; 1,024 is the largest graph
+# the dense kernels take (above it only the incremental core runs)
+NAV_GATE_V = (32, 64, 128, 256, 512, 1024)
+NAV_GATE_MARGIN = 0.9  # the incremental tick must take under 90% of the full
+
+
+def nav_walk(rng, B, V):
+    """Poses of B PointGoalNav-like walks of V steps on the 45-degree
+    lattice (turning in place repeats a pose), as [B, V, 2] positions and
+    [B, V, 1] headings."""
+    theta = np.zeros(B)
+    pos = np.zeros((B, 2))
+    out_p, out_r = np.zeros((B, V, 2)), np.zeros((B, V, 1))
+    for s in range(V):
+        out_p[:, s], out_r[:, s, 0] = pos, theta
+        a = rng.choice(3, size=B, p=[0.25, 0.15, 0.6])
+        theta = theta + np.where(a == 0, np.pi / 4,
+                                 np.where(a == 1, -np.pi / 4, 0.0))
+        step = np.stack([np.cos(theta), np.sin(theta)], -1)
+        pos = pos + np.where(a[:, None] == 2, step, 0.0)
+    return out_p.astype(np.float32), out_r.astype(np.float32)
+
+
+def nav_gate(seed: int, B: int = 16):
+    """Both nav cores timed at B = 16 (the examples' 16 envs) and V in
+    NAV_GATE_V, NavActorCritic's widths (features 5 + pose 3 -> 32 -> 32,
+    k 8, r 2.5): a tau = 1 tick into a state holding V - 1 nodes and a whole
+    window (tau = V) from empty, call and device ms (time_ms), in turns
+    (full, incremental, incremental, full; the median of the two). Both
+    ticks are host-bound and their call times move by tens of percent
+    between readings, so the rule asks for a clear win: the smallest V
+    from which the incremental tick's call ms is below NAV_GATE_MARGIN of
+    the full core's at that V and every larger one; where there is none,
+    1,025, the first V the full core's kernels cannot take."""
+    from gcm_tpu_torch import NavGCM, NavGCMIncremental
+    from gcm_tpu_torch.models import nav_gcm
+    from gcm_tpu_torch.rl.nav import NavActorCritic
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for V in NAV_GATE_V:
+        pol = NavActorCritic(5, 3, max_verts=V, hidden=32, k=8, r=2.5,
+                             device="cuda",
+                             generator=torch.Generator().manual_seed(seed))
+        gnn = pol.core_train.gnn
+        full = NavGCM(gnn, max_verts=V, k=8, r=2.5, device="cuda")
+        inc = NavGCMIncremental(gnn, max_verts=V, k=8, r=2.5, device="cuda")
+        pos, rot = (torch.from_numpy(a).cuda() for a in nav_walk(rng, B, V))
+        x = torch.from_numpy(rng.standard_normal((B, V, 5)).astype(
+            np.float32)).cuda()
+        ones = torch.ones(B, dtype=torch.int32, device="cuda")
+        with torch.no_grad():
+            states = {}
+            for name, core in (("full", full), ("incremental", inc)):
+                fill = torch.full((B,), V - 1, dtype=torch.int32,
+                                  device="cuda")
+                _, st = core(x[:, :-1], pos[:, :-1], rot[:, :-1], fill,
+                             core.initial_state(B, 5))
+                states[name] = st
+            fns = {}
+            for name, core in (("full", full), ("incremental", inc)):
+                fns[name] = {
+                    "tick": functools.partial(core, x[:, -1:], pos[:, -1:],
+                                              rot[:, -1:], ones,
+                                              states[name]),
+                    "window": functools.partial(
+                        core, x, pos, rot, torch.full_like(ones, V),
+                        core.initial_state(B, 5))}
+            runs = {(n, k): [] for n in fns for k in ("tick", "window")}
+            for name in ("full", "incremental", "incremental", "full"):
+                for kind, fn in fns[name].items():
+                    runs[name, kind].append(time_ms(fn, reps=10, rounds=3))
+            r = dict(V=V, B=B)
+            for (name, kind), got in runs.items():
+                r.setdefault(name, {})[kind] = dict(
+                    device_ms=statistics.median(d for d, _ in got),
+                    call_ms=statistics.median(c for _, c in got),
+                    call_ms_runs=[c for _, c in got])
+            got, _ = inc(x[:, -1:], pos[:, -1:], rot[:, -1:], ones,
+                         states["incremental"])
+            want, _ = full(x[:, -1:], pos[:, -1:], rot[:, -1:], ones,
+                           states["full"])
+            r["tick_max_abs_diff"] = float((got - want).abs().max())
+            check(r["tick_max_abs_diff"] <= TOL_KERNEL,
+                  f"nav gate V={V}: the cores' ticks differ by "
+                  f"{r['tick_max_abs_diff']}")
+        rows.append(r)
+    wins = [r["incremental"]["tick"]["call_ms"]
+            < NAV_GATE_MARGIN * r["full"]["tick"]["call_ms"] for r in rows]
+    rule = NAV_GATE_V[-1] + 1
+    for i in range(len(rows)):
+        if all(wins[i:]):
+            rule = NAV_GATE_V[i]
+            break
+    return dict(points=rows, margin=NAV_GATE_MARGIN, rule_min_v=rule,
+                constant_in_use=nav_gcm.NAV_INCREMENTAL_MIN_V)
+
+
+def nav_margins(pos, valid, k, r):
+    """float64 margins of every candidate pair of the causal radius graph:
+    |d - r| and |d - the k-th candidate distance| (the cuts that can flip
+    between devices), the smaller of the two."""
+    p = pos.double()
+    d = torch.cdist(p, p)
+    V = pos.shape[1]
+    iu = torch.arange(V, device=pos.device)
+    cand = valid[:, :, None] & valid[:, None, :] & (iu[None, :] < iu[:, None])
+    within = cand & (d <= r)
+    kth = torch.sort(torch.where(within, d, torch.inf), -1).values[
+        ..., k - 1:k]
+    return torch.minimum((d - r).abs(), (d - kth).abs())
+
+
+def nav_phase(card: str, seed: int = 0, updates: int = 30,
+              B_train: int = 32):
+    """NavActorCritic at examples/train_nav.py's sizes: 16 PointGoalNav
+    envs (horizon 24) in a HostEnvPool, max_verts 26, hidden 32, k 8, r
+    2.5, Adam(5e-4) behind clip_by_global_norm(0.5), entropy 0.03, the
+    native buffer (4 * 16 * 24 steps), B_train 32:
+    (a) collect (the incremental core, tick by tick) == replay (NavGCM, one
+    call) on the card within 1e-5 on a collected batch of episodes;
+    (b) the replay, the loss and every gradient against a CPU copy within
+    1e-4: the adjacency of both copies equal, except at entries whose
+    float64 distance lies within 1e-5 of its cut (then the CPU copy is held
+    teacher-forced on the card's adjacency);
+    (c) launches: fused_dense_graph_conv 2 a replay forward and none on an
+    incremental tick, fused_dense_gnn_bwd a update;
+    (d) the nav gate (nav_gate);
+    (e) `updates` updates of collect(horizon + 2) -> sample -> update,
+    the early and late collect returns (finite; learning is reported, not
+    asserted), update and collect times."""
+    from gcm_tpu_torch import (HostEnvPool, HostReplayBuffer,
+                               NavActorCritic, PointGoalNav,
+                               collect_host_episodes,
+                               episode_batch_to_device, make_nav_a2c_update)
+    from gcm_tpu_torch.models.nav_gcm import pair_distance
+    from gcm_tpu_torch.ops.cuda.dense_gconv import fused_dense_graph_conv
+    from gcm_tpu_torch.ops.cuda.fused_gnn import fused_dense_gnn_bwd
+    from gcm_tpu_torch.rl.distributions import Categorical
+
+    t_phase = time.perf_counter()
+    horizon, envs, V = 24, 16, 26
+    row = dict(card=card, envs=envs, horizon=horizon, max_verts=V,
+               B_train=B_train)
+
+    def make_pool(offset=0):
+        return HostEnvPool([PointGoalNav(
+            horizon=horizon, rng=np.random.default_rng(100 + offset + i))
+            for i in range(envs)])
+
+    def build(device):
+        return NavActorCritic(5, 3, max_verts=V, hidden=32, k=8, r=2.5,
+                              device=device,
+                              generator=torch.Generator().manual_seed(seed))
+
+    pol = build("cuda")
+    pol_cpu = cpu_copy(pol, build)
+    pool = make_pool()
+
+    # (a) collect == replay: tick by tick through the incremental core
+    # (actions drawn from the logits), recording the logits, then the
+    # episodes replayed in one call from their first steps
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dist = Categorical()
+    with torch.no_grad():
+        obs = pool.reset()
+        state = pol.initial_state(envs)
+        prev = torch.zeros(envs, dtype=torch.int64, device="cuda")
+        seq_o, seq_p, seq_l = [], [], []
+        ended = np.zeros(envs, bool)
+        taus = np.full(envs, horizon, np.int32)
+        before = fused_dense_graph_conv.launches
+        for s in range(horizon):
+            o = torch.as_tensor(obs, device="cuda")
+            logits, _, state = pol.step(o, state, prev_action=prev)
+            act = dist.sample(g, logits)
+            seq_o.append(o)
+            seq_p.append(prev)
+            seq_l.append(logits)
+            obs, _, done = pool.step(act.cpu().numpy())
+            taus = np.where(done & ~ended, s + 1, taus)
+            ended |= done
+            prev = act
+        torch.cuda.synchronize()
+        tick_graph_conv = fused_dense_graph_conv.launches - before
+        obs_seq, prev_seq = torch.stack(seq_o, 1), torch.stack(seq_p, 1)
+        collected = torch.stack(seq_l, 1)
+        t_taus = torch.as_tensor(taus, device="cuda")
+        (replay, replay_launches) = counted(
+            lambda: pol(obs_seq, None, prev_actions=prev_seq, taus=t_taus),
+            fused_dense_graph_conv)
+    valid = torch.arange(horizon, device="cuda")[None] < t_taus[:, None]
+    diff = float((replay[0] - collected).abs()[valid].max())
+    check(diff <= TOL_KERNEL, f"nav collect != replay by {diff}")
+    check(tick_graph_conv == 0, f"{tick_graph_conv} fused_dense_graph_conv "
+          "launches on incremental ticks, expected 0")
+    check(replay_launches[0] == 2, f"{replay_launches[0]} "
+          "fused_dense_graph_conv launches a replay forward, expected 2")
+    row["collect_equals_replay"] = dict(max_abs_diff=diff, episodes=envs,
+                                        taus=taus.tolist())
+    row["launches"] = dict(graph_conv_per_tick=tick_graph_conv / horizon,
+                           graph_conv_per_replay=replay_launches[0])
+
+    # (b) replay, loss and gradients against the CPU copy; an adjacency
+    # entry may differ only at a float64 margin under 1e-5, and then the
+    # CPU copy replays on the card's adjacency (teacher-forced)
+    buf = HostReplayBuffer(4 * envs * horizon, 5)
+    collect_host_episodes(pool, pol, buf, 3 * (horizon + 2), g)
+    sample = buf.sample(B_train, horizon, seed=seed)
+    batch = episode_batch_to_device(*sample, gamma=0.99)
+    batch_cpu = episode_batch_to_device(*sample, gamma=0.99, device="cpu")
+    core, core_cpu = pol.core_train, pol_cpu.core_train
+    with torch.no_grad():
+        feat, pos, rot = pol._split(batch["obs"], batch["prev_actions"])
+        _, filled = core(feat, pos, rot, batch["taus"],
+                         core.initial_state(B_train, pol.feat_dim))
+    node_valid = torch.arange(V, device="cuda")[None] \
+        < batch["taus"][:, None]
+    adj = core._edges(pair_distance(filled.pos, filled.pos), node_valid)
+    adj_cpu = core_cpu._edges(pair_distance(filled.pos.cpu(),
+                                            filled.pos.cpu()),
+                              node_valid.cpu())
+    flips = adj.cpu() != adj_cpu
+    margins = nav_margins(filled.pos, node_valid, 8, 2.5).cpu()
+    check(bool((margins[flips] < 1e-5).all()), "nav adjacency differs from "
+          "the CPU copy's away from a tie")
+    row["adjacency_vs_cpu"] = dict(flips=int(flips.sum()),
+                                   edges=int(adj.sum()),
+                                   teacher_forced=bool(flips.any()))
+    (got, bwd) = counted(lambda: a2c_grads(pol, batch, 0.5, 0.03, None),
+                         fused_dense_graph_conv, fused_dense_gnn_bwd)
+    if flips.any():
+        forced = adj.cpu()
+        core_cpu._edges = lambda d, valid: forced
+    want = a2c_grads(pol_cpu, batch_cpu, 0.5, 0.03, None)
+    core_cpu.__dict__.pop("_edges", None)
+    row["grads"] = grads_close("nav update", got, want, TOL_MODEL)
+    row["launches"].update(graph_conv_per_update=bwd[0],
+                           gnn_bwd_calls_per_update=bwd[1])
+    check(bwd[1] == 2, f"{bwd[1]} fused_dense_gnn_bwd calls a nav update, "
+          "expected 2 (one a conv)")
+
+    # (d) the gate
+    row["gate"] = nav_gate(seed)
+
+    # (e) a short training run
+    opt = torch.optim.Adam(pol.parameters(), lr=5e-4)
+    update = make_nav_a2c_update(pol, opt, entropy_coef=0.03,
+                                 max_grad_norm=0.5)
+    returns, collect_ms, update_ms = [], [], []
+    for u in range(updates):
+        (_, ret), secs = timed(lambda: collect_host_episodes(
+            pool, pol, buf, horizon + 2, g))
+        returns.append(ret)
+        collect_ms.append(1e3 * secs)
+        metrics, secs = timed(lambda: update(episode_batch_to_device(
+            *buf.sample(B_train, horizon, seed=u), gamma=0.99)))
+        update_ms.append(1e3 * secs)
+        check(bool(torch.isfinite(metrics["loss"])), "nav: non-finite loss")
+    check(all(np.isfinite(returns)), "nav: non-finite collect return")
+    row["train"] = dict(
+        updates=updates, early_return=float(np.mean(returns[:5])),
+        late_return=float(np.mean(returns[-5:])),
+        collect_ms=spread(collect_ms), update_ms=spread(update_ms),
+        collect_ticks_per_s=updates * (horizon + 2) / (sum(collect_ms) / 1e3),
+        profile_one_update=profile_calls(lambda: update(
+            episode_batch_to_device(*buf.sample(B_train, horizon, seed=0),
+                                    gamma=0.99)), n=1))
+    emit("nav", seconds=time.perf_counter() - t_phase, **row)
+
+
 KERNEL_META = {
     "fused_dense_gnn": dict(
         source="gcm_tpu_torch/csrc/dense_gnn.cu",
@@ -3200,6 +3731,8 @@ def main() -> int:
         (ring_phase, ("fused_dense_gnn", "sddmm_threshold_row")),
         (rl_phase, ("fused_dense_gnn", "fused_dense_gnn_bwd",
                     "spmm_edge_list")),
+        (host_phase, ("spmm_edge_list",)),
+        (nav_phase, ("fused_dense_graph_conv", "fused_dense_gnn_bwd")),
     ]
     launches = dict.fromkeys(wrappers, 0)
     for phase, kernels in paths:

@@ -7,6 +7,12 @@ every `.cuh` header in `csrc/` and the compiler flags, so an edited source is
 rebuilt at its next use and an unchanged one is loaded as it is. `nvcc`'s
 output (with `-Xptxas -v`: registers, shared memory and spills per kernel) is
 kept beside the library as `<name>-<hash>.log`.
+
+The host library of the RL data path (`csrc/host_buffer.cpp`: the replay
+buffer and the CartPole pool) is C++ for the CPU, built the same way with
+`g++` by `load_host` (hashed on its source and flags; no card needed).
+A library is written under a temporary name and moved into place with
+`os.replace`, so processes that build at once never load a partial file.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall", "-Wextra")
 
 
 def sources() -> list[str]:
@@ -101,4 +108,33 @@ def load(name: str) -> ctypes.CDLL:
     """The shared library built from csrc/<name>.cu, built first if needed."""
     target, job = _start(name)
     _finish(name, target, job)
+    return ctypes.CDLL(str(target))
+
+
+def _host_target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update((CSRC / f"{name}.cpp").read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def load_host(name: str) -> ctypes.CDLL:
+    """The host shared library built from csrc/<name>.cpp with g++, built
+    first if needed."""
+    target = _host_target(name)
+    if not target.exists():
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError(f"no C++ compiler (g++) to build "
+                               f"csrc/{name}.cpp")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [cxx, *CXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")],
+            capture_output=True, text=True)
+        target.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on csrc/{name}.cpp:\n"
+                               + proc.stdout + proc.stderr)
+        os.replace(tmp, target)
     return ctypes.CDLL(str(target))

@@ -12,7 +12,9 @@ SparseEdgeChain's list), the aux selectors and positional encoders (`pe`,
 nothing is transposed. DenseGraphConv and GraphConv share one layout, so one
 tree loads into the README's dense and sparse models alike.
 
-The actor-critic policies' tree is {"core", "logit", "value"}.
+The actor-critic policies' tree is {"core", "logit", "value"}; the nav
+policy's core is {"gnn": [...]} (NavDenseGNN's or NavPoseGNN's layers,
+{} for an activation), a NavRelPosConv {"msg1", "msg2", "lin_root"}.
 `jax_param_tree(model)` is that layout with the port's parameters as its
 leaves, the one place that knows it: `named_from_jax(model, tree)` maps
 any tree of the layout (parameters, their gradients, Adam's moments) onto
@@ -21,7 +23,8 @@ compare leaf by leaf, and `jax_paths(model)` names each parameter by its
 JAX path.
 
 `state_from_numpy` / `sparse_state_from_numpy` / `ring_state_from_numpy`
-and their `*_to_numpy` inverses carry the recurrent states across.
+/ `nav_state_from_numpy` / `nav_inc_state_from_numpy` and their
+`*_to_numpy` inverses carry the recurrent states across.
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ from gcm_tpu_torch.edges.sparse_spatial import (SparseEdgeChain,
 from gcm_tpu_torch.edges.sparse_temporal import TemporalEdge
 from gcm_tpu_torch.edges.temporal import TemporalBackedge
 from gcm_tpu_torch.models.dense_gcm import DenseGCM
+from gcm_tpu_torch.models.nav_gcm import (NavDenseGNN, NavGCM,
+                                          NavGCMIncremental, NavIncState,
+                                          NavState)
 from gcm_tpu_torch.models.positional import (PositionalEncoding,
                                              RelativePositionalEncoding)
 from gcm_tpu_torch.models.ring_gcm import RingDenseGCM, RingGraphState
@@ -49,7 +55,9 @@ from gcm_tpu_torch.models.sparse_gcm import SparseGCM
 from gcm_tpu_torch.nn.dense_conv import (DenseGCNConv, DenseGNN,
                                          DenseGraphConv)
 from gcm_tpu_torch.nn.module import MLP, LayerNorm, Linear
+from gcm_tpu_torch.nn.nav_conv import NavPoseGNN, NavRelPosConv
 from gcm_tpu_torch.nn.sparse_conv import GCNConv, GraphConv, SparseGNN
+from gcm_tpu_torch.rl.nav import NavActorCritic
 from gcm_tpu_torch.rl.wrappers import GCMActorCritic, _FrozenMLP
 
 
@@ -67,10 +75,17 @@ def jax_param_tree(module):
     (dicts and lists), the parameters themselves as leaves; a part with no
     parameters is {}. Both sides store linear kernels [in, out], so
     nothing is transposed."""
-    if isinstance(module, GCMActorCritic):
-        return {"core": jax_param_tree(module.core),
+    if isinstance(module, (GCMActorCritic, NavActorCritic)):
+        core = (module.core_train if isinstance(module, NavActorCritic)
+                else module.core)
+        return {"core": jax_param_tree(core),
                 "logit": jax_param_tree(module.logit_branch),
                 "value": jax_param_tree(module.value_branch)}
+    if isinstance(module, (NavGCM, NavGCMIncremental)):
+        return {"gnn": jax_param_tree(module.gnn)}
+    if isinstance(module, NavRelPosConv):
+        return {n: jax_param_tree(getattr(module, n))
+                for n in ("msg1", "msg2", "lin_root")}
     if isinstance(module, _FrozenMLP):
         return jax_param_tree(module.inner)
     if isinstance(module, (Linear, LayerNorm, DenseGCNConv, GCNConv)):
@@ -87,7 +102,8 @@ def jax_param_tree(module):
     if isinstance(module, (DenseGraphConv, GraphConv)):
         return {"lin_rel": jax_param_tree(module.lin_rel),
                 "lin_root": jax_param_tree(module.lin_root)}
-    if isinstance(module, (DenseGNN, SparseGNN, MLP)):
+    if isinstance(module, (DenseGNN, SparseGNN, MLP, NavDenseGNN,
+                           NavPoseGNN)):
         return [jax_param_tree(m) if isinstance(m, torch.nn.Module) else {}
                 for m in module.layers]
     if isinstance(module, (DenseGCM, SparseGCM, RingDenseGCM)):
@@ -235,3 +251,39 @@ def ring_state_to_numpy(state: RingGraphState) -> RingGraphState:
     return RingGraphState(*(t.detach().cpu().float().numpy()
                             if t.dtype == torch.bfloat16
                             else t.detach().cpu().numpy() for t in state))
+
+
+def _f32(a, device):
+    return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+
+def _i32(a, device):
+    return torch.tensor(np.asarray(a), dtype=torch.int32, device=device)
+
+
+def nav_state_from_numpy(state, device) -> NavState:
+    """A NavState (or any (x, pos, rot, t) tuple) of arrays -> the port's
+    NavState on `device`."""
+    x, pos, rot, t = state
+    return NavState(_f32(x, device), _f32(pos, device), _f32(rot, device),
+                    _i32(t, device))
+
+
+def nav_state_to_numpy(state: NavState) -> NavState:
+    return NavState(*(a.detach().cpu().numpy() for a in state))
+
+
+def nav_inc_state_from_numpy(state, device) -> NavIncState:
+    """A NavIncState (or any (x, pos, rot, caches, t) tuple) of arrays ->
+    the port's NavIncState on `device`."""
+    x, pos, rot, caches, t = state
+    return NavIncState(_f32(x, device), _f32(pos, device), _f32(rot, device),
+                       tuple(_f32(c, device) for c in caches),
+                       _i32(t, device))
+
+
+def nav_inc_state_to_numpy(state: NavIncState) -> NavIncState:
+    x, pos, rot, caches, t = (a if isinstance(a, tuple)
+                              else a.detach().cpu().numpy() for a in state)
+    return NavIncState(x, pos, rot,
+                       tuple(c.detach().cpu().numpy() for c in caches), t)

@@ -24,7 +24,11 @@ def test_import_leaves_jax_out():
     code = ("import sys, gcm_tpu_torch, gcm_tpu_torch.ops._build, "
             "gcm_tpu_torch.weights, gcm_tpu_torch.benchmarks.spmm_variants, "
             "gcm_tpu_torch.edges.sparse_learned, "
-            "gcm_tpu_torch.edges.sparse_spatial; "
+            "gcm_tpu_torch.edges.sparse_spatial, "
+            "gcm_tpu_torch.data.host_buffer, gcm_tpu_torch.data.prefetch, "
+            "gcm_tpu_torch.rl.external, gcm_tpu_torch.rl.native_env, "
+            "gcm_tpu_torch.rl.nav, gcm_tpu_torch.models.nav_gcm, "
+            "gcm_tpu_torch.nn.nav_conv; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'gcm_tpu' "
             "or m.startswith('gcm_tpu.')); print(bad)")
@@ -51,6 +55,10 @@ def test_sources_reference_no_jax():
 
 def _cpu_model():
     return g.readme_dense_gcm(graph_size=16, device="cpu")
+
+
+def _cpu_nav_gnn():
+    return g.NavDenseGNN([g.DenseGraphConv(4, 4, device="cpu")])
 
 
 @pytest.mark.parametrize("entry", [
@@ -94,6 +102,14 @@ def _cpu_model():
     lambda: g.CartPoleEnv(masked_velocity=True),
     lambda: g.RecallEnv(),
     lambda: g.ContinuousRecallEnv(),
+    lambda: g.NavGCM(_cpu_nav_gnn()),
+    lambda: g.NavGCMIncremental(_cpu_nav_gnn()),
+    lambda: g.nav_core(_cpu_nav_gnn()),
+    lambda: g.NavRelPosConv(4, 4),
+    lambda: g.NavActorCritic(5, 3),
+    lambda: g.prefetch_to_device(iter([])),
+    lambda: g.episode_batch_to_device(*(np.zeros((1, 2)),) * 3,
+                                      np.ones(1), 0.9),
 ], ids=["readme_dense_gcm", "Linear", "DenseGraphConv", "DenseGCM",
         "SessionServer", "resolve_device", "readme_sparse_gcm", "GraphConv",
         "GCNConv", "SparseGCM", "LayerNorm", "LearnedEdge",
@@ -103,7 +119,9 @@ def _cpu_model():
         "RelativePositionalEncoding", "DenseGCM_cosine", "run_sweep",
         "probe_dynamic_gather", "RingDenseGCM", "GCMActorCritic",
         "SparseGCMActorCritic", "A2C", "PPO", "TMazeEnv", "CartPoleEnv",
-        "RecallEnv", "ContinuousRecallEnv"])
+        "RecallEnv", "ContinuousRecallEnv", "NavGCM", "NavGCMIncremental",
+        "nav_core", "NavRelPosConv", "NavActorCritic", "prefetch_to_device",
+        "episode_batch_to_device"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")
