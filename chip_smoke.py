@@ -116,7 +116,28 @@ Phases, one JSON line each:
    fused_dense_gnn_bwd 2 calls an update, the nav gate (both cores' tau = 1
    tick and whole window at B = 16, V = 32..1,024: the rule for
    models/nav_gcm.py::NAV_INCREMENTAL_MIN_V) and 30 updates of training
-   with their early and late collect returns.
+   with their early and late collect returns;
+17. fast: the scan-free fast cores at the JAX package's benchmark widths
+   (obs 8, a Linear(8, 32) preprocessor, 2 x DenseGraphConv(32, 32) +
+   tanh): BandedRingGCM (hops (1,), N = 128) scanned over [32, 256, 8]
+   against chained windows of 128; BandedScoredGCM with EuclideanEdge(1.0,
+   window=32) the same; CliqueGCM (N = 512) over [32, 128, 8] against
+   chained windows of 64 in both impls; RingDenseGCM(EuclideanEdge(1.0))
+   at N = 1,024 over [32, 320, 8], window against scan. Each window within
+   1e-5 of its scan (the banded and clique final states exact), each core
+   within 1e-5 of the port's DenseGCM / RingDenseGCM with the equivalent
+   selector, and within 1e-4 of a CPU copy. The clique and the ring sum
+   hundreds of terms to ~50 in their first layer, so they are held instead
+   to FAST_SUM_TOL, each float32 path also against a float64 witness, with
+   TF32 products as the control the limit must catch. A Euclidean edge may
+   differ between two sides only within 1e-5 of its threshold (float64),
+   and the beliefs are then held teacher-forced on one side's edge rows. Three
+   Adam steps through make_window_supervised_step (CliqueGCM with
+   impl="proj") and, for the ring, make_trajectory_supervised_step (the
+   branch its training gate picks), against a CPU copy (1e-4); one
+   profiled window and training step a core; each gate's window against
+   scan in turns (timesteps/s); the launches of rows 1, 5 and A of each
+   part.
 Phase 3 also holds spmm_edge_list and spmm_slots (bitwise: kernel and
 plain version add in the same order; slots also with sources outside their
 windows) against their plain versions beside one torch.sparse.mm call on a
@@ -165,7 +186,7 @@ tiles and splits at the sweep's point), beside one
 torch.sparse.sampled_addmm. The dense kernels and the stack backward also
 run at graph sizes off their 16-row grid (N = 5, 65, 100), which the
 wrappers pad and slice, each against its plain version at the unpadded N.
-Phases 4-16 each run with every launch count set to 0 just before and
+Phases 4-17 each run with every launch count set to 0 just before and
 read just after; each must launch the kernels of its path.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero and prints no result.
@@ -173,6 +194,7 @@ check raises, so the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import statistics
@@ -3557,6 +3579,680 @@ def nav_phase(card: str, seed: int = 0, updates: int = 30,
     emit("nav", seconds=time.perf_counter() - t_phase, **row)
 
 
+# -- phase 17: the fast cores ---------------------------------------------------
+
+FAST_SCALE = 0.3  # input scale: EuclideanEdge(1.0) then takes part of the
+#                   candidates (the JAX benchmarks' N(0, 1) inputs leave
+#                   almost none under the threshold)
+RING_GATE_N = (32, 128, 256, 512, 1024)
+CLIQUE_GATE_N = (128, 512, 1024)
+
+
+def fast_core(kind: str, device: str, seed: int = 0, N: int = 128):
+    """A fast core at the JAX package's benchmark widths (bench.py:262-330,
+    :384-410, :543-580; benchmarks/state_churn.py:178-200): obs 8, a
+    Linear(8, 32) preprocessor, 2 x DenseGraphConv(32, 32) + tanh, weights
+    from readme_dense_gcm's seed; and the port's scan core with the
+    equivalent selector and the same modules."""
+    from gcm_tpu_torch import (BandedRingGCM, BandedScoredGCM, CliqueGCM,
+                               DenseEdge, DenseGCM, EuclideanEdge,
+                               RingDenseGCM, TemporalBackedge,
+                               readme_dense_gcm)
+
+    base = readme_dense_gcm(obs_size=8, device=device, seed=seed)
+    kw = dict(preprocessor=base.preprocessor, graph_size=N, device=device)
+    if kind == "banded":
+        return (BandedRingGCM(base.gnn, hops=(1,), **kw),
+                DenseGCM(base.gnn, edge_selectors=TemporalBackedge([1]),
+                         **kw))
+    if kind == "scored":
+        return (BandedScoredGCM(base.gnn, distance=EuclideanEdge(
+                    1.0, window=32), **kw),
+                DenseGCM(base.gnn, edge_selectors=EuclideanEdge(
+                    1.0, window=32), **kw))
+    if kind == "clique":
+        return (CliqueGCM(base.gnn, **kw),
+                DenseGCM(base.gnn, edge_selectors=DenseEdge(), **kw))
+    ring = RingDenseGCM(base.gnn, edge_selectors=EuclideanEdge(1.0), **kw)
+    return ring, ring
+
+
+# The clique's and the ring window's float32 beliefs against each other
+# and against a float64 witness of the same core. Their first aggregate is
+# a sum of hundreds of terms reaching ~50 (float32 rounds it at ~4e-6, and
+# lin_rel carries that into the beliefs), so 1e-5 absolute is out of
+# reach. Each limit lies above the sound float32 paths' readings and below
+# the TF32 control's (PERF.md §6, the fast cores).
+FAST_SUM_TOL = {"clique": 2e-4, "ring": 5e-5}
+
+
+@contextlib.contextmanager
+def tf32_matmuls():
+    """Products in TF32 (a 10-bit mantissa) inside: the lower-precision
+    control of the fast cores' limits."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def float64_copy(model):
+    """The model's weights in float64 (the fast cores are plain PyTorch)."""
+    import copy
+
+    return copy.deepcopy(model).double()
+
+
+def witness_check(label, ref, paths, control, tol):
+    """Each float32 path ({name: beliefs}) within tol of the float64
+    witness ref, and the TF32 control above tol: a limit the control
+    passed could not tell a lower-precision path from a sound one."""
+    errs = {k: float((v.double() - ref).abs().max())
+            for k, v in paths.items()}
+    ctl = float((control.double() - ref).abs().max())
+    check(max(errs.values()) <= tol, f"{label}: float32 vs the float64 "
+          f"witness {errs} above {tol}")
+    check(ctl > tol, f"{label}: the TF32 control reads {ctl}, within {tol}")
+    return dict(vs_float64=errs, tf32_control_vs_float64=ctl, tol=tol)
+
+
+def fast_inputs(seed, B, T, obs=8):
+    rng = np.random.default_rng(seed)
+    xs = (FAST_SCALE * rng.standard_normal((B, T, obs))).astype(np.float32)
+    targets = rng.standard_normal((B, T, 32)).astype(np.float32)
+    return torch.from_numpy(xs), torch.from_numpy(targets)
+
+
+def euclid64_margins(xs, entries):
+    """|d - 1.0| in float64 of EuclideanEdge's score (the mean over the
+    batch's current nodes at step i) for each (b, i, s) of `entries`, s the
+    source's step; xs [B, T, F] from an empty state."""
+    if not len(entries):
+        return []
+    x = xs.double().cpu()
+    b, i, s = (torch.as_tensor(c) for c in zip(*entries))
+    d = (x[:, i].transpose(0, 1) - x[b, s][:, None]).norm(dim=-1).mean(-1)
+    return (d - 1.0).abs().tolist()
+
+
+def smallest_margin(xs, w=None):
+    """The smallest |d - 1.0| in float64 over every candidate EuclideanEdge
+    scores from an empty state: step i against the inputs of steps
+    i - w .. i - 1 (all earlier steps where w is None), d the mean over the
+    batch's current nodes at step i."""
+    from gcm_tpu_torch.ops.distance import euclidean_score_per_step
+
+    x = xs.double()
+    T = x.shape[1]
+    d = euclidean_score_per_step(x, x)  # [B, T, T]: step i, source j
+    i = torch.arange(T, device=x.device)
+    valid = i[None, :] < i[:, None]
+    if w is not None:
+        valid &= i[None, :] >= i[:, None] - w
+    return float((d - 1.0).abs()[:, valid].min())
+
+
+def row_flips(label, got, want, xs, to_entry):
+    """The entries where two devices' (or two paths') edge rows differ:
+    each must lie within NEAR_TIE of the threshold in float64. Returns the
+    count and the largest margin."""
+    diff = (got.cpu() != want.cpu()).nonzero().tolist()
+    margins = euclid64_margins(xs, [to_entry(*e) for e in diff])
+    worst = max(margins, default=0.0)
+    check(worst < NEAR_TIE, f"{label}: an edge differs at margin {worst} "
+          f">= {NEAR_TIE}")
+    return dict(flips=len(diff), largest_flip_margin=worst)
+
+
+def rates(secs, steps):
+    """Timesteps/s of each reading: the median, min and max."""
+    r = [steps / s for s in secs]
+    return dict(median=statistics.median(r), min=min(r), max=max(r))
+
+
+def gate_reading(scan_fn, window_fn, steps, label):
+    """Window against scan in turns (scan, window, window, scan, after one
+    warm call each): timesteps/s of both and whether the window won."""
+    fns = {"scan": scan_fn, "window": window_fn}
+    scan_fn(), window_fn()
+    secs = {k: [] for k in fns}
+    for name in ("scan", "window", "window", "scan"):
+        secs[name].append(timed(fns[name])[1])
+    row = {k: rates(v, steps) for k, v in secs.items()}
+    row["window_wins"] = row["window"]["median"] > row["scan"]["median"]
+    row["label"] = label
+    return row
+
+
+def train_fns(model, xs, targets, lr=1e-3, **window_kw):
+    """(scan step, window step) of the model: one Adam step through its
+    scan (make_dense_supervised_step) and through its window
+    (make_window_supervised_step), each on its own copy of the weights."""
+    import copy
+
+    from gcm_tpu_torch import (make_dense_supervised_step,
+                               make_window_supervised_step)
+
+    a, b = copy.deepcopy(model), copy.deepcopy(model)
+    s = make_dense_supervised_step(a, torch.optim.Adam(a.parameters(), lr))
+    w = make_window_supervised_step(b, torch.optim.Adam(b.parameters(), lr),
+                                    **window_kw)
+    return (lambda: s(xs, targets)), (lambda: w(xs, targets))
+
+
+def copy_to_cpu(model, cpu_model):
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    return cpu_model
+
+
+def grads_match(label, model, cpu_model, tol=TOL_MODEL):
+    """Every parameter's gradient on the card within tol of the CPU
+    copy's (ZERO_GRAD: None on one side is zero)."""
+    worst = 0.0
+    for (name, p), q in zip(model.named_parameters(),
+                            cpu_model.parameters()):
+        g = p.grad.cpu() if p.grad is not None else torch.zeros_like(q)
+        h = q.grad if q.grad is not None else torch.zeros_like(q)
+        worst = max(worst, float((g - h).abs().max()))
+    check(worst <= tol, f"{label}: gradients differ from the CPU copy by "
+          f"{worst} > {tol}")
+    return worst
+
+
+def steps_vs_cpu(label, model, cpu_model, xs, targets, steps=3, lr=1e-3,
+                 cpu_rows=None, **window_kw):
+    """`steps` Adam steps through make_window_supervised_step on the card
+    and on a CPU copy: losses and gradients within TOL_MODEL. cpu_rows: the
+    card's edge rows, which the CPU copy's window takes where an edge
+    flipped between the two (see `forced`)."""
+    from gcm_tpu_torch import make_window_supervised_step
+
+    copy_to_cpu(model, cpu_model)
+    if cpu_rows is not None:
+        def window(xs, st, dones=None):
+            return on_rows(cpu_model, xs, st, cpu_rows)
+
+        cpu_model.window = window
+    step = make_window_supervised_step(
+        model, torch.optim.Adam(model.parameters(), lr), **window_kw)
+    cpu_step = make_window_supervised_step(
+        cpu_model, torch.optim.Adam(cpu_model.parameters(), lr),
+        **window_kw)
+    losses, worst_loss, worst_grad = [], 0.0, 0.0
+    for _ in range(steps):
+        loss = float(step(xs.cuda(), targets.cuda()))
+        want = float(cpu_step(xs, targets))
+        worst_loss = max(worst_loss, abs(loss - want))
+        worst_grad = max(worst_grad, grads_match(label, model, cpu_model))
+        losses.append(loss)
+    check(worst_loss <= TOL_MODEL and all(np.isfinite(losses)),
+          f"{label}: losses {losses} differ from the CPU copy's by "
+          f"{worst_loss}")
+    return dict(steps=steps, losses=losses, loss_max_abs_err=worst_loss,
+                grad_max_abs_err=worst_grad)
+
+
+def on_rows(model, xs, st0, rows):
+    """A fast core's one-chunk window from st0 teacher-forced on `rows`
+    (the scored core's band rows [B, T, w], the ring's selector rows
+    [B, T, N + T]): (beliefs, state)."""
+    from gcm_tpu_torch.models import ring_window
+
+    if hasattr(model, "_window"):
+        return model._window(xs, st0, None, rows)
+    return ring_window._window_chunk(model, xs, st0, rows=rows)
+
+
+def launches_of(fn, wrappers):
+    """fn's result and the launches of each named wrapper during it."""
+    before = {k: w.launches for k, w in wrappers.items()}
+    out = fn()
+    return out, {k: w.launches - before[k] for k, w in wrappers.items()}
+
+
+def fast_banded(row, wrappers, seed, B=32, T=256, Tw=128):
+    """BandedRingGCM (hops (1,)): the scan over [32, 256, 8] against
+    chained windows of 128 (beliefs 1e-5, the final state exact), against
+    DenseGCM with TemporalBackedge([1]) (1e-5) and a CPU copy's window
+    (1e-4); three Adam steps through make_window_supervised_step against a
+    CPU copy; the gate."""
+    model, dense = fast_core("banded", "cuda", seed)
+    cpu_model, _ = fast_core("banded", "cpu", seed)
+    xs, targets = fast_inputs(seed + 70, B, T)
+    xs_c = xs.cuda()
+    with torch.no_grad():
+        (scan, scan_st), l_scan = launches_of(
+            lambda: model.scan(xs_c, model.initial_state(B, 8)), wrappers)
+
+        def chained():
+            st, outs = model.initial_state(B, 8), []
+            for lo in range(0, T, Tw):
+                o, st = model.window(xs_c[:, lo:lo + Tw], st)
+                outs.append(o)
+            return torch.cat(outs, 1), st
+
+        (win, win_st), l_win = launches_of(chained, wrappers)
+        (want, _), l_dense = launches_of(
+            lambda: dense.scan(xs_c, dense.initial_state(B, 8)), wrappers)
+        cpu, _ = cpu_model.window(xs[:, :Tw], cpu_model.initial_state(B, 8))
+    err_ws = float((win - scan).abs().max())
+    exact = all(torch.equal(a, b) for a, b in zip(win_st, scan_st))
+    err_dense = float((scan - want).abs().max())
+    err_cpu = float((win[:, :Tw].cpu() - cpu).abs().max())
+    check(bool(torch.isfinite(win).all()), "banded: non-finite beliefs")
+    check(err_ws <= TOL_KERNEL and exact, f"banded: window vs scan {err_ws}, "
+          f"final state equal {exact}")
+    check(err_dense <= TOL_KERNEL, f"banded vs DenseGCM: {err_dense}")
+    check(err_cpu <= TOL_MODEL, f"banded vs the CPU copy: {err_cpu}")
+    check(l_scan["fused_dense_gnn"] == 0 and l_win["fused_dense_gnn"] == 0
+          and l_dense["fused_dense_gnn"] == T,
+          f"banded launches: scan {l_scan}, window {l_win}, dense {l_dense}")
+    row["banded"] = dict(
+        B=B, T=T, Tw=Tw, window_vs_scan_max_abs_err=err_ws,
+        final_state_exact=exact, vs_dense_max_abs_err=err_dense,
+        vs_cpu_max_abs_err=err_cpu,
+        launches=dict(scan=l_scan, window=l_win, dense_scan=l_dense),
+        train=steps_vs_cpu("banded train", model, cpu_model, xs[:, :Tw],
+                           targets[:, :Tw]))
+    return model, xs, targets
+
+
+def scored_rows_of_scan(model, xs):
+    """The scored core's scan step by step from an empty state, and the
+    band row each step writes: (beliefs, rows [B, T, w])."""
+    B, T = xs.shape[0], xs.shape[1]
+    st, outs, rows = model.initial_state(B, 8), [], []
+    b = torch.arange(B, device=xs.device)
+    for t in range(T):
+        out, st = model(xs[:, t], st)
+        outs.append(out)
+        rows.append(st.band[b, (st.t - 1).remainder(model.graph_size).long()])
+    return torch.stack(outs, 1), torch.stack(rows, 1)
+
+
+def dense_rows_of_scan(dense, xs, w):
+    """DenseGCM's scan step by step from an empty state, and each step's
+    inserted row as band offsets 1..w: (beliefs, rows [B, T, w])."""
+    B, T = xs.shape[0], xs.shape[1]
+    N = dense.graph_size
+    st, outs, rows = dense.initial_state(B, 8), [], []
+    b = torch.arange(B, device=xs.device)
+    k = torch.arange(1, w + 1, device=xs.device)
+    for t in range(T):
+        out, st = dense(xs[:, t], st)
+        r = (st.num_nodes - 1).long()  # the inserted row
+        outs.append(out)
+        adj_row = st.adj[b, r]  # [B, N]
+        src = r[:, None] - k[None, :]
+        rows.append(torch.where(src >= 0, torch.gather(
+            adj_row, 1, src.clamp(0, N - 1)), 0.0))
+    return torch.stack(outs, 1), torch.stack(rows, 1)
+
+
+def fast_scored(row, wrappers, seed, B=32, T=256, Tw=128):
+    """BandedScoredGCM with EuclideanEdge(1.0, window=32): the window
+    against its scan (step by step, each step's band row recorded) and
+    against DenseGCM with the same windowed selector, and a CPU copy's
+    window, each teacher-forced onto the other side's rows where a score
+    rounds across the threshold; three Adam steps against the CPU copy."""
+    model, dense = fast_core("scored", "cuda", seed)
+    cpu_model, _ = fast_core("scored", "cpu", seed)
+    xs, targets = fast_inputs(seed + 71, B, T)
+    xs_c = xs.cuda()
+    w = model.window_size
+    to_entry = (lambda b, i, k: (b, i, i - k - 1))
+    with torch.no_grad():
+        st0 = model.initial_state(B, 8)
+        (win, win_st), l_win = launches_of(lambda: model.window(xs_c, st0),
+                                           wrappers)
+        rows = model._window_rows(xs_c, st0, None, None)[0]
+        (scan, scan_rows), l_scan = launches_of(
+            lambda: scored_rows_of_scan(model, xs_c), wrappers)
+        (want, dense_rows), l_dense = launches_of(
+            lambda: dense_rows_of_scan(dense, xs_c, w), wrappers)
+        f_scan = row_flips("scored window vs scan", rows, scan_rows, xs,
+                           to_entry)
+        f_dense = row_flips("scored vs DenseGCM", scan_rows, dense_rows, xs,
+                            to_entry)
+        tf_scan = (on_rows(model, xs_c, st0, scan_rows)[0]
+                   if f_scan["flips"] else win)
+        tf_dense = (on_rows(model, xs_c, st0, dense_rows)[0]
+                    if f_dense["flips"] else win)
+        cpu_st0 = cpu_model.initial_state(B, 8)
+        cpu_rows = cpu_model._window_rows(xs[:, :Tw], cpu_st0, None,
+                                          None)[0]
+        f_cpu = row_flips("scored vs the CPU copy", rows[:, :Tw], cpu_rows,
+                          xs, to_entry)
+        margin = smallest_margin(xs_c, w)
+        train_rows = rows[:, :Tw].cpu() if f_cpu["flips"] else None
+        cpu, _ = (on_rows(cpu_model, xs[:, :Tw], cpu_st0, train_rows)
+                  if f_cpu["flips"] else
+                  cpu_model.window(xs[:, :Tw], cpu_st0))
+    err_ws = float((tf_scan - scan).abs().max())
+    err_dense = float((tf_dense - want).abs().max())
+    err_cpu = float((win[:, :Tw].cpu() - cpu).abs().max())
+    check(bool(torch.isfinite(win).all()), "scored: non-finite beliefs")
+    check(err_ws <= TOL_KERNEL, f"scored: window vs scan {err_ws}")
+    check(err_dense <= TOL_KERNEL, f"scored vs DenseGCM: {err_dense}")
+    check(err_cpu <= TOL_MODEL, f"scored vs the CPU copy: {err_cpu}")
+    check(l_scan["fused_dense_gnn"] == 0 and l_win["fused_dense_gnn"] == 0
+          and l_dense["fused_dense_gnn"] == T,
+          f"scored launches: scan {l_scan}, window {l_win}, "
+          f"dense {l_dense}")
+    row["scored"] = dict(
+        B=B, T=T, window=w, edges_per_row=float(rows.sum(-1).mean()),
+        smallest_score_margin=margin,
+        window_vs_scan_max_abs_err=err_ws, window_vs_scan=f_scan,
+        vs_dense_max_abs_err=err_dense, vs_dense=f_dense,
+        vs_cpu_max_abs_err=err_cpu, vs_cpu=f_cpu,
+        launches=dict(scan=l_scan, window=l_win, dense_scan=l_dense),
+        train=steps_vs_cpu("scored train", model, cpu_model, xs[:, :Tw],
+                           targets[:, :Tw], cpu_rows=train_rows))
+    return model, xs, targets
+
+
+def fast_clique(row, wrappers, seed, B=32, T=128, Tw=64, N=512):
+    """CliqueGCM at N = 512: the scan over [32, 128, 8] against chained
+    windows of 64 in both impls (the final state exact) and against DenseGCM
+    with DenseEdge, and each of them against a float64 witness (the gather
+    window in float64), all within FAST_SUM_TOL["clique"], with the gather
+    window in TF32 as the control; a CPU copy's window (1e-4); three Adam
+    steps through make_window_supervised_step(impl="proj") against a CPU
+    copy."""
+    model, dense = fast_core("clique", "cuda", seed, N=N)
+    cpu_model, _ = fast_core("clique", "cpu", seed, N=N)
+    xs, targets = fast_inputs(seed + 72, B, T)
+    xs_c = xs.cuda()
+    tol = FAST_SUM_TOL["clique"]
+    out = dict(B=B, T=T, Tw=Tw, graph_size=N)
+    paths = {}
+    with torch.no_grad():
+        (scan, scan_st), l_scan = launches_of(
+            lambda: model.scan(xs_c, model.initial_state(B, 8)), wrappers)
+        paths["scan"] = scan
+        for impl in ("gather", "proj"):
+            def chained(impl=impl):
+                st, outs = model.initial_state(B, 8), []
+                for lo in range(0, T, Tw):
+                    o, st = model.window(xs_c[:, lo:lo + Tw], st, impl=impl)
+                    outs.append(o)
+                return torch.cat(outs, 1), st
+
+            (win, win_st), l_win = launches_of(chained, wrappers)
+            paths[f"window_{impl}"] = win
+            err = float((win - scan).abs().max())
+            exact = all(torch.equal(a, b) for a, b in zip(win_st, scan_st))
+            check(bool(torch.isfinite(win).all()) and err <= tol
+                  and exact, f"clique {impl}: window vs scan {err} > {tol} "
+                  f"or final state unequal ({exact})")
+            check(l_win["fused_dense_gnn"] == 0, f"clique {impl}: {l_win}")
+            out[f"window_{impl}"] = dict(vs_scan_max_abs_err=err,
+                                         final_state_exact=exact,
+                                         launches=l_win)
+        (want, _), l_dense = launches_of(
+            lambda: dense.scan(xs_c, dense.initial_state(B, 8)), wrappers)
+        paths["dense_scan"] = want
+        ref = float64_copy(model)
+        ref_out, _ = ref.window(xs_c.double(), ref.initial_state(
+            B, 8, dtype=torch.float64))
+        with tf32_matmuls():
+            ctl, _ = model.window(xs_c, model.initial_state(B, 8))
+        cpu, _ = cpu_model.window(xs[:, :Tw], cpu_model.initial_state(B, 8),
+                                  impl="proj")
+    err_dense = float((scan - want).abs().max())
+    err_cpu = float((scan[:, :Tw].cpu() - cpu).abs().max())
+    check(err_dense <= tol, f"clique vs DenseGCM: {err_dense} > {tol}")
+    check(err_cpu <= TOL_MODEL, f"clique vs the CPU copy: {err_cpu}")
+    check(l_scan["fused_dense_gnn"] == 0
+          and l_dense["fused_dense_gnn"] == T,
+          f"clique launches: scan {l_scan}, dense {l_dense}")
+    out.update(vs_dense_max_abs_err=err_dense, vs_cpu_max_abs_err=err_cpu,
+               witness=witness_check("clique", ref_out, paths, ctl, tol),
+               launches=dict(scan=l_scan, dense_scan=l_dense),
+               train=steps_vs_cpu("clique train", model, cpu_model,
+                                  xs[:, :Tw], targets[:, :Tw], impl="proj"))
+    row["clique"] = out
+    return model, xs, targets
+
+
+def ring_scan_rows(adj_F, T, N):
+    """The scan's selector rows over the window's extended source space,
+    from its final adjacency: from an empty state with T <= N, row p_i =
+    slot i holds step i's row and source slot s < i is insert s."""
+    B = adj_F.shape[0]
+    rows = torch.zeros((B, T, N + T), dtype=torch.float32,
+                       device=adj_F.device)
+    rows[:, :, N:] = torch.tril(adj_F[:, :T, :T].float(), diagonal=-1)
+    return rows
+
+
+def fast_ring(row, wrappers, seed, B=32, T=320, N=1024, T_cpu=64):
+    """RingDenseGCM(EuclideanEdge(1.0)) at N = 1,024: the window over
+    [32, 320, 8] against the ring scan, teacher-forced onto the scan's rows
+    where an edge flipped (only within 1e-5 of the threshold): the final
+    state exact; window and scan each against a float64 witness (the
+    window in float64 on the scan's rows), all within FAST_SUM_TOL["ring"],
+    with the window in TF32 as the control; a CPU copy's window at T = 64
+    (1e-4), on the card's rows where an edge flipped; three Adam steps
+    through make_trajectory_supervised_step (the branch its gate picks)
+    and, at T = 64, three make_window_supervised_step steps against the
+    CPU copy."""
+    from gcm_tpu_torch import make_trajectory_supervised_step
+    from gcm_tpu_torch.models import ring_window
+
+    model, _ = fast_core("ring", "cuda", seed, N=N)
+    cpu_model, _ = fast_core("ring", "cpu", seed, N=N)
+    xs, targets = fast_inputs(seed + 73, B, T)
+    xs_c = xs.cuda()
+    tol = FAST_SUM_TOL["ring"]
+    to_entry = (lambda b, i, e: (b, i, e - N))
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        st0 = model.initial_state(B, 8)
+        (win, win_st), l_win = launches_of(lambda: model.window(xs_c, st0),
+                                           wrappers)
+        fwd_peak = torch.cuda.max_memory_allocated()
+        rows = ring_window._window_rows(model, xs_c, st0)
+        (scan, scan_st), l_scan = launches_of(
+            lambda: model.scan(xs_c, st0), wrappers)
+        scan_rows = ring_scan_rows(scan_st.adj, T, N)
+        f_scan = row_flips("ring window vs scan", rows, scan_rows, xs,
+                           to_entry)
+        tf, tf_st = (on_rows(model, xs_c, st0, scan_rows)
+                     if f_scan["flips"] else (win, win_st))
+        ref = float64_copy(model)
+        ref_out, _ = on_rows(ref, xs_c.double(), ref.initial_state(
+            B, 8, dtype=torch.float64), scan_rows)
+        with tf32_matmuls():
+            ctl, _ = on_rows(model, xs_c, st0, scan_rows)
+        del ref
+        margin = smallest_margin(xs_c)
+        cpu_st0 = cpu_model.initial_state(B, 8)
+        card_rows = rows[:, :T_cpu, :N + T_cpu].cpu()
+        f_cpu = row_flips("ring window vs the CPU copy", card_rows,
+                          ring_window._window_rows(cpu_model, xs[:, :T_cpu],
+                                                   cpu_st0), xs, to_entry)
+        cpu_rows = card_rows if f_cpu["flips"] else None
+        cpu, _ = (on_rows(cpu_model, xs[:, :T_cpu], cpu_st0, cpu_rows)
+                  if f_cpu["flips"] else
+                  cpu_model.window(xs[:, :T_cpu], cpu_st0))
+    err_ws = float((tf - scan).abs().max())
+    exact = all(torch.equal(a, b) for a, b in zip(tf_st, scan_st))
+    win_cpu, _ = model.window(xs_c[:, :T_cpu], st0)
+    err_cpu = float((win_cpu.detach().cpu() - cpu).abs().max())
+    check(bool(torch.isfinite(win).all()), "ring window: non-finite")
+    check(err_ws <= tol and exact, f"ring window vs scan {err_ws} > {tol} "
+          f"or final state unequal ({exact})")
+    check(err_cpu <= TOL_MODEL, f"ring window vs the CPU copy: {err_cpu}")
+    check(l_win["fused_dense_gnn"] == 0 and l_scan["fused_dense_gnn"] == T,
+          f"ring launches: window {l_win}, scan {l_scan}")
+    witness = witness_check("ring", ref_out, {"window": tf, "scan": scan},
+                            ctl, tol)
+    torch.cuda.reset_peak_memory_stats()
+    step = make_trajectory_supervised_step(
+        model, torch.optim.Adam(model.parameters(), 1e-3))
+    (losses, l_step) = launches_of(
+        lambda: [float(step(xs_c, targets.cuda())) for _ in range(3)],
+        wrappers)
+    train_peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"ring trajectory step: {losses}")
+    want_step = ({"fused_dense_gnn": 0, "fused_dense_gnn_bwd": 0}
+                 if step.use_window else
+                 {"fused_dense_gnn": 3 * T, "fused_dense_gnn_bwd": 3 * T})
+    check(all(l_step[k] == v for k, v in want_step.items()),
+          f"ring trajectory step launches {l_step}, expected {want_step}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    row["ring_window"] = dict(
+        B=B, T=T, graph_size=N, edges_per_row=float(rows.sum(-1).mean()),
+        smallest_score_margin=margin,
+        chunk=dict(forward=ring_window.max_chunk_len(model, B, 8),
+                   train=ring_window.max_chunk_len(model, B, 8, "train")),
+        peak_gib=dict(forward=fwd_peak / 2 ** 30, train=train_peak / 2 ** 30,
+                      card=total / 2 ** 30),
+        window_vs_scan_max_abs_err=err_ws, final_state_exact=exact,
+        window_vs_scan=f_scan, witness=witness,
+        vs_cpu_max_abs_err=err_cpu, vs_cpu=f_cpu,
+        launches=dict(window=l_win, scan=l_scan, trajectory_steps=l_step),
+        trajectory_step=dict(branch="window" if step.use_window else "scan",
+                             losses=losses),
+        train_vs_cpu=steps_vs_cpu(
+            "ring train", model, cpu_model, xs[:, :T_cpu],
+            targets[:, :T_cpu], cpu_rows=cpu_rows))
+    return model, xs, targets
+
+
+def fast_gates(seed, B=32):
+    """Each fast core's window against its scan, forward and train (one
+    Adam step), timesteps/s in turns: the banded cores at N = 128 (T = 256
+    forward in chained windows of 128, T = 128 train), the clique core at
+    N = 128, 512 and 1,024 (T = 128, windows of 64), the ring core at
+    N = 32, 128, 256, 512 and 1,024 (T = 128). Returns the readings,
+    whether the window won at every point of a core and mode (the rule its
+    gate follows) and the gate's answer at each point."""
+    out, answers = {}, {}
+    for kind in ("banded", "scored"):
+        model, _ = fast_core(kind, "cuda", seed)
+        xs, targets = fast_inputs(seed + 80, B, 256)
+        xs_c = xs.cuda()
+
+        def fwd_scan(model=model, xs_c=xs_c):
+            with torch.no_grad():
+                return model.scan(xs_c, model.initial_state(B, 8))
+
+        def fwd_win(model=model, xs_c=xs_c):
+            with torch.no_grad():
+                st = model.initial_state(B, 8)
+                for lo in range(0, 256, 128):
+                    _, st = model.window(xs_c[:, lo:lo + 128], st)
+
+        s, w = train_fns(model, xs_c[:, :128], targets[:, :128].cuda())
+        out[kind] = [dict(graph_size=128, forward=gate_reading(
+            fwd_scan, fwd_win, B * 256, "T 256"), train=gate_reading(
+            s, w, B * 128, "T 128"))]
+        answers[kind] = [gate_answers(model)]
+    clique = []
+    for N in CLIQUE_GATE_N:
+        model, _ = fast_core("clique", "cuda", seed, N=N)
+        xs, targets = fast_inputs(seed + 81, B, 128)
+        xs_c = xs.cuda()
+
+        def fwd_scan(model=model, xs_c=xs_c):
+            with torch.no_grad():
+                return model.scan(xs_c, model.initial_state(B, 8))
+
+        def fwd_win(model=model, xs_c=xs_c):
+            with torch.no_grad():
+                st = model.initial_state(B, 8)
+                for lo in range(0, 128, 64):
+                    _, st = model.window(xs_c[:, lo:lo + 64], st,
+                                         impl="proj")
+
+        s, w = train_fns(model, xs_c, targets.cuda(), impl="proj")
+        clique.append(dict(graph_size=N, forward=gate_reading(
+            fwd_scan, fwd_win, B * 128, f"N {N}"), train=gate_reading(
+            s, w, B * 128, f"N {N}")))
+        answers.setdefault("clique", []).append(gate_answers(model))
+    out["clique"] = clique
+    ring = []
+    for N in RING_GATE_N:
+        model, _ = fast_core("ring", "cuda", seed, N=N)
+        xs, targets = fast_inputs(seed + 82, B, 128)
+        xs_c = xs.cuda()
+
+        def fwd_scan(model=model, xs_c=xs_c):
+            with torch.no_grad():
+                return model.scan(xs_c, model.initial_state(B, 8))
+
+        def fwd_win(model=model, xs_c=xs_c):
+            with torch.no_grad():
+                return model.window(xs_c, model.initial_state(B, 8))
+
+        s, w = train_fns(model, xs_c, targets.cuda())
+        ring.append(dict(graph_size=N, forward=gate_reading(
+            fwd_scan, fwd_win, B * 128, f"N {N}"), train=gate_reading(
+            s, w, B * 128, f"N {N}")))
+        answers.setdefault("ring", []).append(gate_answers(model))
+    out["ring"] = ring
+    out["window_won_everywhere"] = {
+        k: {m: all(r[m]["window_wins"] for r in out[k])
+            for m in ("forward", "train")} for k in answers}
+    out["gate_answers"] = answers
+    return out
+
+
+def gate_answers(model):
+    """The core's window_profitable answer by mode."""
+    return {m: model.window_profitable(m) for m in ("forward", "train")}
+
+
+def fast_phase(card: str, seed: int = 0):
+    """The scan-free fast cores (models/banded_gcm.py, clique_gcm.py,
+    ring_window.py) and the window and trajectory train steps at the JAX
+    package's benchmark widths: each window against its own scan, against
+    the port's DenseGCM / RingDenseGCM scan with the equivalent selector
+    and against a CPU copy; timesteps/s of scan and window in turns; one
+    profiled window and training step a core; the gates' readings; the
+    launches of fused_dense_gnn (row 1), sddmm_threshold_row (row 5) and
+    fused_dense_gnn_bwd (row A) of each part (the fast cores launch none:
+    the dense and ring scans theirs)."""
+    from gcm_tpu_torch import make_window_supervised_step
+    from gcm_tpu_torch.ops.cuda.fused_gnn import (fused_dense_gnn,
+                                                  fused_dense_gnn_bwd)
+    from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
+
+    t_phase = time.perf_counter()
+    wrappers = {"fused_dense_gnn": fused_dense_gnn,
+                "sddmm_threshold_row": sddmm_threshold_row,
+                "fused_dense_gnn_bwd": fused_dense_gnn_bwd}
+    row = dict(card=card, input_scale=FAST_SCALE)
+    profiled = {}
+    for kind, run in (("banded", fast_banded), ("scored", fast_scored),
+                      ("clique", fast_clique), ("ring_window", fast_ring)):
+        model, xs, targets = run(row, wrappers, seed)
+        T = {"banded": 128, "scored": 128, "clique": 64,
+             "ring_window": xs.shape[1]}[kind]
+        xs_c, tg_c = xs[:, :T].cuda(), targets[:, :T].cuda()
+        kw = {"impl": "proj"} if kind == "clique" else {}
+        step = make_window_supervised_step(
+            model, torch.optim.Adam(model.parameters(), 1e-3), **kw)
+
+        def window(model=model, xs_c=xs_c, kw=kw):
+            with torch.no_grad():
+                model.window(xs_c, model.initial_state(xs_c.shape[0], 8),
+                             **kw)
+
+        profiled[kind] = dict(
+            T=T, window=profile_calls(window, n=3),
+            train_step=profile_calls(lambda: step(xs_c, tg_c), n=3))
+    row["profiled"] = profiled
+    (gates, l_gates) = launches_of(lambda: fast_gates(seed), wrappers)
+    row["gates"] = gates
+    row["launches_gates"] = l_gates
+    emit("fast", seconds=time.perf_counter() - t_phase, **row)
+
+
 KERNEL_META = {
     "fused_dense_gnn": dict(
         source="gcm_tpu_torch/csrc/dense_gnn.cu",
@@ -3733,6 +4429,7 @@ def main() -> int:
                     "spmm_edge_list")),
         (host_phase, ("spmm_edge_list",)),
         (nav_phase, ("fused_dense_graph_conv", "fused_dense_gnn_bwd")),
+        (fast_phase, ("fused_dense_gnn", "fused_dense_gnn_bwd")),
     ]
     launches = dict.fromkeys(wrappers, 0)
     for phase, kernels in paths:

@@ -9,7 +9,10 @@ sparse cores, A2C and PPO) trains policies on the card; its host-stepped
 path (rl/external.py, the native replay buffer and CartPole pool of
 data/host_buffer.py and rl/native_env.py, data/prefetch.py) drives host
 environments, and rl/nav.py trains a navigation policy over the NavGCM
-cores (models/nav_gcm.py, nn/nav_conv.py). Entry
+cores (models/nav_gcm.py, nn/nav_conv.py). The fast cores
+(models/banded_gcm.py, models/clique_gcm.py, models/ring_window.py)
+compute whole trajectories without a scan, and make_window_supervised_step
+/ make_trajectory_supervised_step train through them. Entry
 points run on the CUDA card unless given device="cpu", where every kernel
 takes its plain PyTorch version. This package imports neither JAX nor
 the gcm_tpu package.
@@ -34,6 +37,10 @@ from gcm_tpu_torch.edges.sparse_spatial import (SparseEdgeChain,
                                                 SpatialRadiusEdge)
 from gcm_tpu_torch.edges.sparse_temporal import TemporalEdge
 from gcm_tpu_torch.edges.temporal import TemporalBackedge
+from gcm_tpu_torch.models.banded_gcm import (BandedRingGCM,
+                                             BandedScoredGCM,
+                                             BandedScoredState, BandedState)
+from gcm_tpu_torch.models.clique_gcm import CliqueGCM
 from gcm_tpu_torch.models.converters import dense_to_sparse, sparse_to_dense
 from gcm_tpu_torch.models.dense_gcm import DenseGCM, dense_fused_supported
 from gcm_tpu_torch.models.nav_gcm import (NavDenseGNN, NavGCM,
@@ -73,10 +80,16 @@ from gcm_tpu_torch.rl.ppo import PPO, gae
 from gcm_tpu_torch.rl.wrappers import GCMActorCritic, SparseGCMActorCritic
 from gcm_tpu_torch.serve.sessions import SessionServer
 from gcm_tpu_torch.train import (make_dense_supervised_step,
-                                 make_sparse_supervised_step)
+                                 make_sparse_supervised_step,
+                                 make_trajectory_supervised_step,
+                                 make_window_supervised_step)
 from gcm_tpu_torch.utils.debug import grad_norms
 from gcm_tpu_torch.utils.packing import pack_hidden, unpack_hidden
-from gcm_tpu_torch.weights import (jax_param_tree, jax_paths,
+from gcm_tpu_torch.weights import (banded_scored_state_from_numpy,
+                                   banded_scored_state_to_numpy,
+                                   banded_state_from_numpy,
+                                   banded_state_to_numpy, jax_param_tree,
+                                   jax_paths,
                                    load_jax_params, named_from_jax,
                                    nav_inc_state_from_numpy,
                                    nav_inc_state_to_numpy,
@@ -87,7 +100,8 @@ from gcm_tpu_torch.weights import (jax_param_tree, jax_paths,
                                    state_to_numpy)
 
 __all__ = [
-    "A2C", "CartPoleEnv", "Categorical", "ContinuousRecallEnv", "CosineEdge",
+    "A2C", "BandedRingGCM", "BandedScoredGCM", "BandedScoredState",
+    "BandedState", "CartPoleEnv", "CliqueGCM", "Categorical", "ContinuousRecallEnv", "CosineEdge",
     "DenseEdge", "DenseGCM", "DenseGCNConv", "DenseGNN", "DenseGraphConv",
     "DenseGraphState", "DiagGaussian", "Distance", "EdgeChain",
     "EuclideanEdge", "GCMActorCritic", "GCNConv", "GraphConv", "HostEnvPool",
@@ -100,13 +114,16 @@ __all__ = [
     "SparseGCMActorCritic", "SparseGNN", "SparseGraphState",
     "SparseLearnedEdge", "SpatialEdge", "SpatialKNNEdge", "SpatialRadiusEdge",
     "TMazeEnv", "TemporalBackedge", "TemporalEdge", "bucket_sink_slots",
+    "banded_scored_state_from_numpy", "banded_scored_state_to_numpy",
+    "banded_state_from_numpy", "banded_state_to_numpy",
     "check_slot_overflow", "coalesce_edges", "collect_host_episodes",
     "default_edge_network", "dense_fused_supported", "dense_initial_state",
     "dense_to_sparse", "discounted_returns", "episode_batch_to_device",
     "fused_dense_gnn", "fused_dense_graph_conv", "gae", "grad_norms",
     "jax_param_tree", "jax_paths", "load_jax_params",
     "make_dense_supervised_step", "make_nav_a2c_update",
-    "make_offline_a2c_update", "make_sparse_supervised_step", "named_from_jax",
+    "make_offline_a2c_update", "make_sparse_supervised_step",
+    "make_trajectory_supervised_step", "make_window_supervised_step", "named_from_jax",
     "nav_core", "nav_inc_state_from_numpy", "nav_inc_state_to_numpy",
     "nav_state_from_numpy", "nav_state_to_numpy", "pack_edges_host",
     "pack_hidden", "prefetch_to_device", "readme_dense_gcm",

@@ -43,6 +43,8 @@ from gcm_tpu_torch.edges.temporal import TemporalBackedge
 from gcm_tpu_torch.utils.ste import noise_for, noise_shape, ste
 from gcm_tpu_torch.utils.validation import check_dense_inputs
 
+FAST_CORES = "ROADMAP Queue 1 item 7 (the fast cores)"
+
 
 class _RowColAcc:
     """Accumulates the fused step's writes to adjacency row and column
@@ -268,11 +270,20 @@ class DenseGCM(nn.Module):
         step t. remat=True keeps no step's intermediates for the backward
         but its inputs, and recomputes the step there (one checkpoint a
         step, with the step's noise drawn before it, so the recomputation
-        sees the same noise). `unroll` is accepted only at its default: it
+        sees the same noise). remat="reverse" (the reversible backward)
+        raises until it is ported; any other non-bool remat raises
+        ValueError. `unroll` is accepted only at its default: it
         is a compile knob of XLA's scan with no meaning in eager PyTorch."""
         if unroll is not None:
             raise NotImplementedError(
                 "unroll is an XLA scan compile knob with no eager meaning")
+        if remat == "reverse":
+            raise NotImplementedError(
+                f"remat='reverse' (the reversible backward) waits for "
+                f"{FAST_CORES}")
+        if not isinstance(remat, bool):
+            raise ValueError(f"remat must be True, False or 'reverse', not "
+                             f"{remat!r}")
         outs = []
         for t in range(xs.shape[1]):
             step_noise = (self.step_noise(xs.shape[0], generator)

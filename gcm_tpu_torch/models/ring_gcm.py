@@ -28,9 +28,10 @@ Gumbel noise from `generator=` or `noise=` (a `step_noise` dict). The ring
 draws the learned TemporalBackedge's noise over its N slots, [num_samples,
 B, N], as the JAX ring does.
 
-`window()` (the scan-free forward) and `scan(remat="reverse")` (the
-reversible backward) belong to the fast cores of ROADMAP Queue 1 item 7
-and raise until then.
+`window()` is the scan-free forward of models/ring_window.py, with its
+card-measured gates `window_profitable` and `window_applicable`;
+`scan(remat="reverse")` (the reversible backward) belongs to the fast
+cores of ROADMAP Queue 1 item 7 and raises until then.
 """
 
 from __future__ import annotations
@@ -50,14 +51,13 @@ from gcm_tpu_torch.edges.distance import (CosineEdge, Distance, EuclideanEdge,
                                           SpatialEdge)
 from gcm_tpu_torch.edges.learned import LearnedEdge
 from gcm_tpu_torch.edges.temporal import TemporalBackedge
+from gcm_tpu_torch.models.dense_gcm import FAST_CORES
 from gcm_tpu_torch.models.positional import PositionalEncoding
 from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
 from gcm_tpu_torch.ops.distance import euclidean_score
 from gcm_tpu_torch.utils.ste import (diff_or, gumbel_softmax, noise_for,
                                      spardmax, ste)
 from gcm_tpu_torch.utils.validation import check_ring_inputs
-
-FAST_CORES = "ROADMAP Queue 1 item 7 (the fast cores)"
 
 
 class RingGraphState(NamedTuple):
@@ -422,7 +422,31 @@ class RingDenseGCM(nn.Module):
         return torch.stack(outs, dim=1), state
 
     def window(self, xs, state, dones=None, chunk=None):
-        """The JAX ring's scan-free whole-trajectory forward
-        (models/ring_window.py there)."""
-        raise NotImplementedError(f"RingDenseGCM.window waits for "
-                                  f"{FAST_CORES}")
+        """The scan-free whole-trajectory forward (models/ring_window.py):
+        the scan's beliefs up to float-accumulation order and its final
+        state. Falls back to `scan` on dones or on a structure the window
+        does not support (window_supported). chunk= overrides the
+        memory-bounded chunk length (ring_window.max_chunk_len)."""
+        from gcm_tpu_torch.models.ring_window import (ring_window,
+                                                      window_supported)
+
+        if dones is not None or not window_supported(self):
+            return self.scan(xs, state, dones=dones)
+        return ring_window(self, xs, state, chunk=chunk)
+
+    def window_profitable(self, mode: str = "forward") -> bool:
+        """The whole-trajectory call's gate: always the window. On the card
+        it beat the ring scan, forward and in a training step, at every
+        graph size measured (chip_smoke.py's fast phase, "gates" line;
+        PERF.md §6): the scan is a loop of launches a step."""
+        del mode
+        return True
+
+    def window_applicable(self, dones=None) -> bool:
+        """Whether `window` runs the window and not its scan fallback: no
+        dones (a reset breaks the kill-cumsum's fixed slot lifetimes) and a
+        supported structure. A caller that passes unroll/remat to the scan
+        asks this first, since the fallback drops them."""
+        from gcm_tpu_torch.models.ring_window import window_supported
+
+        return dones is None and window_supported(self)

@@ -29,6 +29,16 @@ def euclidean_score(curr: torch.Tensor, nodes: torch.Tensor):
     return cdist(curr[None, :, :], nodes).mean(dim=1)
 
 
+def euclidean_score_per_step(curr: torch.Tensor, nodes: torch.Tensor):
+    """`euclidean_score` at every step of a trajectory: curr [B, T, F]
+    against nodes [B, T, N, F] (each step its own) or [B, N, F] (the same
+    at every step) -> [B, T, N]. The mean runs over the batch's current
+    nodes of the same step, as the JAX package's vmap over time takes it."""
+    c = curr.transpose(0, 1)[:, None]  # [T, 1, B, F]
+    n = nodes.transpose(0, 1) if nodes.dim() == 4 else nodes[None]
+    return cdist(c, n).mean(dim=2).transpose(0, 1)
+
+
 def cosine_score(curr: torch.Tensor, nodes: torch.Tensor, eps: float = 1e-8):
     """Cosine similarity with torch.nn.CosineSimilarity's eps clamp on the
     norms, curr [B, F], nodes [B, N, F] -> [B, N]."""

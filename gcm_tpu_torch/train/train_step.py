@@ -43,6 +43,55 @@ def make_dense_supervised_step(model, opt):
     return step
 
 
+def make_window_supervised_step(model, opt, **window_kwargs):
+    """Step through a core's scan-free whole-trajectory forward
+    (`BandedRingGCM` / `BandedScoredGCM` / `CliqueGCM` / `RingDenseGCM`
+    `.window`): no per-step loop in the forward or the backward.
+    window_kwargs (e.g. impl="proj" for CliqueGCM) go to `window`.
+    Returns step(xs [B,T,obs], targets [B,T,H], dones=None) -> loss."""
+
+    def step(xs, targets, dones=None):
+        def loss_fn():
+            state = model.initial_state(xs.shape[0], xs.shape[-1],
+                                        dtype=xs.dtype)
+            outs, _ = model.window(xs, state, dones=dones, **window_kwargs)
+            return torch.mean((outs - targets) ** 2)
+
+        return _apply(opt, loss_fn)
+
+    return step
+
+
+def make_trajectory_supervised_step(model, opt, unroll=None, remat=False):
+    """Step that picks, once, at construction, the core's scan-free
+    `window` where its card-measured training gate says so
+    (`window_profitable(mode="train")`) and `window_applicable` holds, and
+    else its scan with the caller's unroll / remat. The step's
+    `use_window` attribute says which. Returns step(xs [B,T,obs],
+    targets [B,T,H]) -> loss."""
+    use_window = (callable(getattr(model, "window", None))
+                  and getattr(model, "direction", "forward") == "forward")
+    if use_window and hasattr(model, "window_profitable"):
+        use_window = model.window_profitable(mode="train")
+    if use_window and hasattr(model, "window_applicable"):
+        use_window = model.window_applicable(dones=None)
+
+    def step(xs, targets):
+        def loss_fn():
+            state = model.initial_state(xs.shape[0], xs.shape[-1],
+                                        dtype=xs.dtype)
+            if use_window:
+                outs, _ = model.window(xs, state)
+            else:
+                outs, _ = model.scan(xs, state, unroll=unroll, remat=remat)
+            return torch.mean((outs - targets) ** 2)
+
+        return _apply(opt, loss_fn)
+
+    step.use_window = use_window
+    return step
+
+
 def make_sparse_supervised_step(model, opt):
     """Whole-rollout step through SparseGCM (time-batched training).
     Returns step(xs [B,T,obs], targets [B,T,H], taus [B]) -> loss."""

@@ -23,8 +23,11 @@ compare leaf by leaf, and `jax_paths(model)` names each parameter by its
 JAX path.
 
 `state_from_numpy` / `sparse_state_from_numpy` / `ring_state_from_numpy`
-/ `nav_state_from_numpy` / `nav_inc_state_from_numpy` and their
-`*_to_numpy` inverses carry the recurrent states across.
+/ `banded_state_from_numpy` / `banded_scored_state_from_numpy` /
+`nav_state_from_numpy` / `nav_inc_state_from_numpy` and their
+`*_to_numpy` inverses carry the recurrent states across. The fast cores'
+trees are {"gnn", "preprocessor"} and, for BandedScoredGCM, "distance"
+(a learned scale's {"dist_param"}).
 """
 
 from __future__ import annotations
@@ -44,6 +47,10 @@ from gcm_tpu_torch.edges.sparse_spatial import (SparseEdgeChain,
                                                 SpatialRadiusEdge)
 from gcm_tpu_torch.edges.sparse_temporal import TemporalEdge
 from gcm_tpu_torch.edges.temporal import TemporalBackedge
+from gcm_tpu_torch.models.banded_gcm import (BandedRingGCM,
+                                             BandedScoredGCM,
+                                             BandedScoredState, BandedState)
+from gcm_tpu_torch.models.clique_gcm import CliqueGCM
 from gcm_tpu_torch.models.dense_gcm import DenseGCM
 from gcm_tpu_torch.models.nav_gcm import (NavDenseGNN, NavGCM,
                                           NavGCMIncremental, NavIncState,
@@ -106,10 +113,11 @@ def jax_param_tree(module):
                            NavPoseGNN)):
         return [jax_param_tree(m) if isinstance(m, torch.nn.Module) else {}
                 for m in module.layers]
-    if isinstance(module, (DenseGCM, SparseGCM, RingDenseGCM)):
+    if isinstance(module, (DenseGCM, SparseGCM, RingDenseGCM,
+                           BandedRingGCM, BandedScoredGCM, CliqueGCM)):
         out = {"gnn": jax_param_tree(module.gnn)}
         for name in ("preprocessor", "edge_selectors", "aux_edge_selectors",
-                     "positional_encoder"):
+                     "positional_encoder", "distance"):
             sub = getattr(module, name, None)
             if sub is not None:
                 out[name] = jax_param_tree(sub)
@@ -251,6 +259,29 @@ def ring_state_to_numpy(state: RingGraphState) -> RingGraphState:
     return RingGraphState(*(t.detach().cpu().float().numpy()
                             if t.dtype == torch.bfloat16
                             else t.detach().cpu().numpy() for t in state))
+
+
+def banded_state_from_numpy(state, device) -> BandedState:
+    """A BandedState (or any (nodes, t) tuple) of arrays -> the port's
+    BandedState on `device` (BandedRingGCM's and CliqueGCM's state)."""
+    nodes, t = state
+    return BandedState(_f32(nodes, device), _i32(t, device))
+
+
+def banded_state_to_numpy(state: BandedState) -> BandedState:
+    return BandedState(*(a.detach().cpu().numpy() for a in state))
+
+
+def banded_scored_state_from_numpy(state, device) -> BandedScoredState:
+    """A BandedScoredState (or any (nodes, band, t) tuple) of arrays -> the
+    port's BandedScoredState on `device`."""
+    nodes, band, t = state
+    return BandedScoredState(_f32(nodes, device), _f32(band, device),
+                             _i32(t, device))
+
+
+def banded_scored_state_to_numpy(state: BandedScoredState):
+    return BandedScoredState(*(a.detach().cpu().numpy() for a in state))
 
 
 def _f32(a, device):

@@ -11,6 +11,8 @@ with churn and LRU eviction. Tolerance 1e-5: both sides compute in float32
 and differ only in summation order.
 """
 
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -30,9 +32,18 @@ from gcm_tpu_torch import (DenseGCM, DenseGNN, DenseGraphConv, SessionServer,
                            load_jax_params, readme_dense_gcm, reset_where,
                            sparse_initial_state, state_from_numpy,
                            state_to_numpy)
+from gcm_tpu_torch.models.dense_gcm import FAST_CORES
 from gcm_tpu_torch.utils.validation import ShapeError
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def one_step_a_loop_iteration(monkeypatch):
+    """JAX's scans unrolled once: unrolling changes how XLA compiles the
+    loop (and how long it takes), not what it computes."""
+    for knob in ("SCAN_UNROLL", "DENSE_SCAN_UNROLL", "RING_SCAN_UNROLL"):
+        monkeypatch.setattr(jax_config, knob, 1)
 
 ATOL = 1e-5
 OBS, N, B, T = 8, 16, 4, 24
@@ -258,6 +269,27 @@ def test_validate_raises_like_jax():
             model(torch.from_numpy(xx), tst)
     with torch.no_grad():
         model(torch.from_numpy(x), model.initial_state(B, OBS))
+
+
+def test_scan_refuses_reverse_and_unknown_remat():
+    """remat="reverse" is the JAX package's reversible scan, not yet in the
+    port: it raises, naming the roadmap item, with or without dones, and
+    never falls back to per-step checkpointing; any other non-bool remat
+    is refused. remat=True gives remat=False's beliefs."""
+    _, _, model = build_pair()
+    xs, dones = inputs(seed=5)
+    xs, dones = torch.from_numpy(xs), torch.from_numpy(dones)
+    st = model.initial_state(B, OBS)
+    for d in (None, dones):
+        with pytest.raises(NotImplementedError, match=re.escape(FAST_CORES)):
+            model.scan(xs, st, dones=d, remat="reverse")
+    for bad in ("per_step", 4, None):
+        with pytest.raises(ValueError, match="remat"):
+            model.scan(xs, st, remat=bad)
+    with torch.no_grad():
+        want, _ = model.scan(xs, st, dones=dones)
+        got, _ = model.scan(xs, st, dones=dones, remat=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_state_round_trip_from_jax():

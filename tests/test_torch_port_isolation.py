@@ -28,7 +28,10 @@ def test_import_leaves_jax_out():
             "gcm_tpu_torch.data.host_buffer, gcm_tpu_torch.data.prefetch, "
             "gcm_tpu_torch.rl.external, gcm_tpu_torch.rl.native_env, "
             "gcm_tpu_torch.rl.nav, gcm_tpu_torch.models.nav_gcm, "
-            "gcm_tpu_torch.nn.nav_conv; "
+            "gcm_tpu_torch.nn.nav_conv, gcm_tpu_torch.models.banded_gcm, "
+            "gcm_tpu_torch.models.clique_gcm, "
+            "gcm_tpu_torch.models.ring_window, "
+            "gcm_tpu_torch.train.train_step; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'gcm_tpu' "
             "or m.startswith('gcm_tpu.')); print(bad)")
@@ -55,6 +58,10 @@ def test_sources_reference_no_jax():
 
 def _cpu_model():
     return g.readme_dense_gcm(graph_size=16, device="cpu")
+
+
+def _cpu_gnn():
+    return g.DenseGNN([g.DenseGraphConv(4, 4, device="cpu"), torch.tanh])
 
 
 def _cpu_nav_gnn():
@@ -110,6 +117,9 @@ def _cpu_nav_gnn():
     lambda: g.prefetch_to_device(iter([])),
     lambda: g.episode_batch_to_device(*(np.zeros((1, 2)),) * 3,
                                       np.ones(1), 0.9),
+    lambda: g.BandedRingGCM(_cpu_gnn()),
+    lambda: g.BandedScoredGCM(_cpu_gnn(), hops=(1,)),
+    lambda: g.CliqueGCM(_cpu_gnn()),
 ], ids=["readme_dense_gcm", "Linear", "DenseGraphConv", "DenseGCM",
         "SessionServer", "resolve_device", "readme_sparse_gcm", "GraphConv",
         "GCNConv", "SparseGCM", "LayerNorm", "LearnedEdge",
@@ -121,7 +131,8 @@ def _cpu_nav_gnn():
         "SparseGCMActorCritic", "A2C", "PPO", "TMazeEnv", "CartPoleEnv",
         "RecallEnv", "ContinuousRecallEnv", "NavGCM", "NavGCMIncremental",
         "nav_core", "NavRelPosConv", "NavActorCritic", "prefetch_to_device",
-        "episode_batch_to_device"])
+        "episode_batch_to_device", "BandedRingGCM", "BandedScoredGCM",
+        "CliqueGCM"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")

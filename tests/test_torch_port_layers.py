@@ -30,6 +30,14 @@ from gcm_tpu_torch.nn.dense_conv import conv_project, plan_conv_stack
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def one_step_a_loop_iteration(monkeypatch):
+    """JAX's scans unrolled once: unrolling changes how XLA compiles the
+    loop (and how long it takes), not what it computes."""
+    for knob in ("SCAN_UNROLL", "DENSE_SCAN_UNROLL", "RING_SCAN_UNROLL"):
+        monkeypatch.setattr(jax_config, knob, 1)
+
 ATOL = 1e-5
 B, N, FIN, FOUT = 2, 16, 8, 6
 

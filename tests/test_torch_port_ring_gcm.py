@@ -315,8 +315,8 @@ def test_adj_dtype_bf16_is_bitwise_and_refuses_learned_temporal():
 def test_validate_remat_and_unported_options():
     """validate=True refuses a DenseGraphState and wrong shapes; the chunked
     (K = 4) and per-step remat give remat=False's forward bitwise and its
-    gradients; window() and remat='reverse' raise, naming the queue item
-    they wait for."""
+    gradients; window() gives the scan's beliefs; remat='reverse' raises,
+    naming the queue item it waits for."""
     G, T = 8, 16
     _, _, model, _, _ = model_pair("learned", G, port_kw=dict(validate=True))
     state = model.initial_state(B, OBS)
@@ -347,8 +347,11 @@ def test_validate_remat_and_unported_options():
                                        atol=1e-6, rtol=1e-5, err_msg=n)
     with pytest.raises(ValueError, match="divisible"):
         model.scan(xs, model.initial_state(B, OBS), remat=5)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        model.window(xs, model.initial_state(B, OBS))
+    with torch.no_grad():  # the scan-free window: the scan's beliefs
+        got, _ = model.window(xs, model.initial_state(B, OBS))
+        want, _ = model.scan(xs, model.initial_state(B, OBS))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL_SPARDMAX,
+                               rtol=0)
     with pytest.raises(NotImplementedError, match="item 7"):
         model.scan(xs, model.initial_state(B, OBS), remat="reverse")
 

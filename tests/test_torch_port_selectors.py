@@ -59,6 +59,14 @@ from gcm_tpu_torch.utils import ste as tste
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def one_step_a_loop_iteration(monkeypatch):
+    """JAX's scans unrolled once: unrolling changes how XLA compiles the
+    loop (and how long it takes), not what it computes."""
+    for knob in ("SCAN_UNROLL", "DENSE_SCAN_UNROLL", "RING_SCAN_UNROLL"):
+        monkeypatch.setattr(jax_config, knob, 1)
+
 ATOL = 1e-5
 ATOL_SPARDMAX = 1e-4
 NEAR = 1e-5        # |float64 score - threshold| below this may flip

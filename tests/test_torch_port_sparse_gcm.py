@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import gcm_tpu.config as jax_config
 from gcm_tpu.core.graph_state import reset_where as jax_reset_where
 from gcm_tpu.core.graph_state import \
     sparse_initial_state as jax_sparse_initial_state
@@ -43,6 +44,14 @@ from gcm_tpu_torch.ops import scatter
 from gcm_tpu_torch.utils.validation import ShapeError
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def one_step_a_loop_iteration(monkeypatch):
+    """JAX's scans unrolled once: unrolling changes how XLA compiles the
+    loop (and how long it takes), not what it computes."""
+    for knob in ("SCAN_UNROLL", "DENSE_SCAN_UNROLL", "RING_SCAN_UNROLL"):
+        monkeypatch.setattr(jax_config, knob, 1)
 
 ATOL = 1e-5
 F, N, B, T = 6, 12, 3, 8

@@ -54,6 +54,14 @@ from gcm_tpu_torch.ops.cuda.spmm_slots import bucket_sink_slots, spmm_slots
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def one_step_a_loop_iteration(monkeypatch):
+    """JAX's scans unrolled once: unrolling changes how XLA compiles the
+    loop (and how long it takes), not what it computes."""
+    for knob in ("SCAN_UNROLL", "DENSE_SCAN_UNROLL", "RING_SCAN_UNROLL"):
+        monkeypatch.setattr(jax_config, knob, 1)
+
 ATOL, RTOL = 1e-5, 1e-4
 ZERO_GRAD = 1e-7  # a gradient that is zero up to float32 rounding
 LR = 1e-3
