@@ -137,7 +137,38 @@ Phases, one JSON line each:
    branch its training gate picks), against a CPU copy (1e-4); one
    profiled window and training step a core; each gate's window against
    scan in turns (timesteps/s); the launches of rows 1, 5 and A of each
-   part.
+   part;
+18. reverse: the reversible backwards (models/ring_reversible.py,
+   dense_reversible.py) on the ring and dense cores (obs = hidden = 32,
+   N = 512, B = 32, T = 256 from a warm start of 300 steps, so both
+   wrap) with TemporalBackedge([1]) and a deterministic LearnedEdge: the
+   forward bitwise against the scan, one Adam step's gradients and
+   parameters against remat=False on the card and (temporal) against a
+   CPU copy at B = 4 (1e-4), exactly 2T launches of fused_dense_gnn and T
+   of fused_dense_gnn_bwd a step; the memory a step holds
+   (max_memory_allocated) and its ms for remat=False, True and "reverse",
+   median of 5 in turns; the replay + backward at the RL phase's CartPole
+   shapes with remat=False and "reverse" in turns, the reading behind
+   rl/wrappers.py's RING_REVERSE_BWD / DENSE_REVERSE_BWD;
+19. policy: GCMActorCritic with core="banded" (TemporalBackedge([1, 2])),
+   "clique" (DenseEdge) and "banded_scored" (EuclideanEdge(0.25, window=
+   8)) on masked CartPole (B = 64, T = 64, graph 16, widths 64): greedy
+   collection on the card against a CPU copy stepped over the same
+   observations (logits 1e-4, no greedy action apart but at a tie), the
+   A2C replay through the window (0 launches of fused_dense_gnn) with
+   its loss and gradients against the CPU copy (1e-4; for the scored core
+   a miss is excused only where a score lies within 1e-5 of the
+   threshold); each fast core against "dense" at N = 32 and 256 in turns
+   (ms of an A2C update; of a trajectory step for the scored core) and
+   what core="auto" resolves each family to;
+20. runtime: train_resilient on the card (tests/test_train_utils.py's
+   recall trainer: 6 updates straight against 4, a restart and 2 more,
+   the parameters bitwise equal); export_step / load_step of the README
+   DenseGCM and its CosineEdge(0.5) model at capacity 256 (3 ticks bitwise
+   equal to the eager step; fused_dense_gnn and sddmm_threshold_row
+   launched inside the loaded program, by their counts and the profiler;
+   µs a tick eager and loaded); nan_guard on a NaN observation; the host
+   µs fused_dense_gnn's op adds to a call against its launcher, in turns.
 Phase 3 also holds spmm_edge_list and spmm_slots (bitwise: kernel and
 plain version add in the same order; slots also with sources outside their
 windows) against their plain versions beside one torch.sparse.mm call on a
@@ -186,7 +217,7 @@ tiles and splits at the sweep's point), beside one
 torch.sparse.sampled_addmm. The dense kernels and the stack backward also
 run at graph sizes off their 16-row grid (N = 5, 65, 100), which the
 wrappers pad and slice, each against its plain version at the unpadded N.
-Phases 4-17 each run with every launch count set to 0 just before and
+Phases 4-20 each run with every launch count set to 0 just before and
 read just after; each must launch the kernels of its path.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero and prints no result.
@@ -207,9 +238,6 @@ import torch
 
 TOL_KERNEL = 1e-5
 TOL_MODEL = 1e-4
-PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-PEAK_TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
 
 
 def emit(phase: str, **fields) -> None:
@@ -313,12 +341,16 @@ def library_gnn(x, adj, wcats, biases, acts):
     return h
 
 
-def bound_ms(nbytes, flops, peak=PEAK_F32_FLOP_PER_S):
+def bound_ms(nbytes, flops, tf32: bool = False):
     """Least time on an H100 SXM for a function that must move nbytes (each
     input read once, each output written once) and do flops operations at
-    the rate peak (f32 outside the tensor cores by default): (ms, what
-    bounds it)."""
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    the card's f32 rate outside the tensor cores, or its TF32 rate on them
+    (the peaks of gcm_tpu_torch/utils/roofline.py): (ms, what bounds
+    it)."""
+    from gcm_tpu_torch.utils import roofline
+
+    peak = roofline.TF32_FLOPS_PER_S if tf32 else roofline.F32_FLOPS_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / roofline.HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -338,7 +370,7 @@ def dense_bound_ms(B, N, widths):
                 for fi, fo in zip(widths[:-1], widths[1:]))
     params = sum(2 * fi * fo + fo for fi, fo in zip(widths[:-1], widths[1:]))
     nbytes = 4 * (B * N * widths[0] + B * N * N + params + B * N * widths[-1])
-    return bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
+    return bound_ms(nbytes, 3 * flops, tf32=True)
 
 
 def max_abs_err(got, want, nan_fills=False) -> float:
@@ -521,7 +553,7 @@ def dense_bwd_bound_ms(B, N, widths, need_adj):
     params = sum(2 * fi * fo + fo for fi, fo in zip(widths[:-1], widths[1:]))
     nbytes = 4 * (2 * B * N * widths[0] + B * N * N * (1 + need_adj)
                   + 2 * params + B * N * widths[-1])
-    return bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
+    return bound_ms(nbytes, 3 * flops, tf32=True)
 
 
 def dense_bwd_case(case, B, N, widths, acts, need_adj, inputs, seed,
@@ -4253,6 +4285,678 @@ def fast_phase(card: str, seed: int = 0):
     emit("fast", seconds=time.perf_counter() - t_phase, **row)
 
 
+# -- phase 18: the reversible backward ----------------------------------------
+
+REVERSE_MODES = (False, True, "reverse")
+
+
+def reverse_core(kind: str, sel: str, device: str, seed: int = 0,
+                 N: int = 512, F: int = 32):
+    """The ring or dense core at obs = hidden = F (readme_dense_gcm's
+    modules: a Linear(F, F) preprocessor, 2 x DenseGraphConv(F, F) +
+    tanh) on a graph of N, with TemporalBackedge([1]) or a deterministic
+    LearnedEdge(F); the same seed gives the same weights on any device."""
+    from gcm_tpu_torch import (DenseGCM, LearnedEdge, RingDenseGCM,
+                               TemporalBackedge, readme_dense_gcm)
+
+    base = readme_dense_gcm(obs_size=F, hidden=F, device=device, seed=seed)
+    edge = (TemporalBackedge([1]) if sel == "temporal" else LearnedEdge(
+        input_size=F, deterministic=True, device=device,
+        generator=torch.Generator().manual_seed(seed + 1)))
+    cls = RingDenseGCM if kind == "ring" else DenseGCM
+    return cls(base.gnn, preprocessor=base.preprocessor, edge_selectors=edge,
+               graph_size=N, device=device)
+
+
+def reverse_step(model, xs, targets, st0, remat, lr=1e-3):
+    """One Adam step of the mean squared error of model.scan(xs, st0,
+    remat) against targets; the gradients stay in .grad. The loss."""
+    opt = torch.optim.Adam(model.parameters(), lr)
+    opt.zero_grad(set_to_none=True)
+    outs, _ = model.scan(xs, st0, remat=remat)
+    loss = torch.mean((outs - targets) ** 2)
+    loss.backward()
+    opt.step()
+    return float(loss.detach())
+
+
+def params_close(label, a, b, tol=TOL_MODEL) -> dict:
+    """Every parameter and its gradient of model a within tol of model
+    b's (on either device; no gradient counts as zero)."""
+    worst_g = worst_p = 0.0
+    for (n, p), q in zip(a.named_parameters(), b.parameters()):
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        h = q.grad if q.grad is not None else torch.zeros_like(q)
+        worst_g = max(worst_g, float((g.cpu() - h.cpu()).abs().max()))
+        worst_p = max(worst_p, float((p.detach().cpu()
+                                      - q.detach().cpu()).abs().max()))
+    check(worst_g <= tol and worst_p <= tol,
+          f"{label}: gradients {worst_g} or Adam-stepped parameters "
+          f"{worst_p} differ by more than {tol}")
+    return dict(grad_max_abs_err=worst_g, param_max_abs_err=worst_p)
+
+
+def take_batch(state, n: int):
+    """The first n batch elements of a state (the size-0 weights as
+    they are)."""
+    B = state[0].shape[0]
+    return type(state)(*(f[:n] if f.dim() and f.shape[0] == B else f
+                         for f in state))
+
+
+def reverse_case(kind, sel, wrappers, seed, B=32, N=512, F=32, T=256,
+                 warm=300, B_cpu=4):
+    """One core and selector: a warm start of `warm` steps (unaligned; the
+    window wraps), the reversible forward bitwise against the scan's,
+    one Adam step with remat=False and with "reverse" on copies (gradients
+    and parameters within 1e-4), the reverse step's exact launches (2T of
+    fused_dense_gnn, T of fused_dense_gnn_bwd), and, for the temporal
+    selector, the reverse step on B_cpu elements against a CPU copy
+    (1e-4)."""
+    import copy
+
+    g = torch.Generator().manual_seed(seed + 80)
+    model = reverse_core(kind, sel, "cuda", seed, N, F)
+    xs = torch.randn((B, T, F), generator=g).cuda()
+    targets = torch.randn((B, T, F), generator=g).cuda()
+    with torch.no_grad():
+        _, st0 = model.scan(torch.randn((B, warm, F), generator=g).cuda(),
+                            model.initial_state(B, F))
+        want, want_st = model.scan(xs, st0)
+        got, got_st = model.scan(xs, st0, remat="reverse")
+    check(bitwise_equal(got, want) and all(
+        bitwise_equal(a, b) for a, b in zip(got_st, want_st)),
+        f"{kind} {sel}: the reversible forward is not the scan's bitwise")
+    out = dict(kind=kind, selector=sel, B=B, N=N, F=F, T=T, warm_start=warm,
+               forward_bitwise=True)
+    plain, rev = copy.deepcopy(model), copy.deepcopy(model)
+    reverse_step(plain, xs, targets, st0, False)
+    _, launches = launches_of(
+        lambda: reverse_step(rev, xs, targets, st0, "reverse"), wrappers)
+    check(launches["fused_dense_gnn"] == 2 * T
+          and launches["fused_dense_gnn_bwd"] == T,
+          f"{kind} {sel}: a reverse training step launched {launches}, not "
+          f"{2 * T} of fused_dense_gnn and {T} of fused_dense_gnn_bwd")
+    out["launches_per_reverse_step"] = launches
+    out["vs_remat_false"] = params_close(f"{kind} {sel} reverse vs scan",
+                                         rev, plain)
+    if sel == "temporal":
+        cpu = copy_to_cpu(model, reverse_core(kind, sel, "cpu", seed, N, F))
+        card = copy.deepcopy(model)
+        st_b = take_batch(st0, B_cpu)
+        loss = reverse_step(card, xs[:B_cpu], targets[:B_cpu], st_b,
+                            "reverse")
+        want_loss = reverse_step(
+            cpu, xs[:B_cpu].cpu(), targets[:B_cpu].cpu(),
+            type(st_b)(*(f.cpu() for f in st_b)), "reverse")
+        check(abs(loss - want_loss) <= TOL_MODEL,
+              f"{kind}: reverse loss {loss} vs CPU {want_loss}")
+        out["vs_cpu"] = dict(B=B_cpu, loss_abs_err=abs(loss - want_loss),
+                             **params_close(f"{kind} reverse vs CPU", card,
+                                            cpu))
+    return model, xs, targets, st0, out
+
+
+def reverse_memory(model, xs, targets, st0, rounds=5):
+    """remat=False, True and "reverse" in turns (forward order, then
+    backward, ...): wall ms of one Adam step (median of `rounds`) and the
+    peak of torch.cuda.max_memory_allocated over what was allocated before
+    the step."""
+    import copy
+
+    models = {str(m): copy.deepcopy(model) for m in REVERSE_MODES}
+    ms = {str(m): [] for m in REVERSE_MODES}
+    held = dict.fromkeys(ms, 0)
+    for r in range(rounds + 1):
+        order = REVERSE_MODES if r % 2 else REVERSE_MODES[::-1]
+        for mode in order:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _, secs = timed(lambda: reverse_step(models[str(mode)], xs,
+                                                 targets, st0, mode))
+            held[str(mode)] = max(held[str(mode)],
+                                  torch.cuda.max_memory_allocated() - before)
+            if r:  # round 0 warms each mode up
+                ms[str(mode)].append(1e3 * secs)
+    return {k: dict(step_ms=v, step_ms_median=statistics.median(v),
+                    peak_held_gib=held[k] / 2 ** 30) for k, v in ms.items()}
+
+
+def replay_reading(kind, seed, B=64, T=64, rounds=5):
+    """The RL phase's CartPole replay (graph 16, TemporalBackedge([1, 2]),
+    widths 64) through the core's scan and its backward, remat=False
+    against "reverse" in turns: ms of each (median of `rounds`) and
+    whether "reverse" won, the reading RING_REVERSE_BWD /
+    DENSE_REVERSE_BWD hold."""
+    from gcm_tpu_torch import (A2C, CartPoleEnv, GCMActorCritic,
+                               TemporalBackedge)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pol = GCMActorCritic(2, 2, 2, core=kind, graph_size=16,
+                         edge_selectors=TemporalBackedge([1, 2]),
+                         generator=torch.Generator().manual_seed(seed))
+    env = CartPoleEnv(horizon=T, masked_velocity=True, reward_scale=0.05)
+    obs = A2C(env, pol, rollout_len=T).collect(g, B)["obs"]
+
+    def replay(remat):
+        pol.zero_grad(set_to_none=True)
+        out, _ = pol.core.scan(obs, pol.initial_state(B), remat=remat)
+        (out ** 2).mean().backward()
+
+    ms = {"False": [], "reverse": []}
+    replay(False), replay("reverse")
+    for r in range(rounds):
+        for mode in ((False, "reverse") if r % 2 else ("reverse", False)):
+            ms[str(mode)].append(1e3 * timed(lambda: replay(mode))[1])
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    return dict(B=B, T=T, graph_size=16, ms=ms, ms_median=med,
+                reverse_wins=med["reverse"] < med["False"])
+
+
+def reverse_phase(card: str, seed: int = 0):
+    """The reversible backward (models/ring_reversible.py,
+    dense_reversible.py) on the card: the ring and dense cores with
+    TemporalBackedge([1]) and a deterministic LearnedEdge at B=32, N=512,
+    F=32, T=256 from a warm start of 300 steps (both wrap): forward bitwise
+    against the scan, gradients and an Adam step within 1e-4 of
+    remat=False on the card and (temporal) of a CPU copy, exact launches;
+    peak memory and step ms of remat=False, True and "reverse" in turns
+    (temporal); the replay reading at the RL phase's shapes, which
+    RING_REVERSE_BWD / DENSE_REVERSE_BWD must agree with (the run fails
+    where the constant and the card's answer differ)."""
+    from gcm_tpu_torch.ops.cuda.fused_gnn import (fused_dense_gnn,
+                                                  fused_dense_gnn_bwd)
+    from gcm_tpu_torch.rl import wrappers as rl_wrappers
+
+    t_phase = time.perf_counter()
+    wrappers = {"fused_dense_gnn": fused_dense_gnn,
+                "fused_dense_gnn_bwd": fused_dense_gnn_bwd}
+    row = dict(card=card, cases=[], memory={}, replay={})
+    for kind in ("ring", "dense"):
+        for sel in ("learned", "temporal"):
+            model, xs, targets, st0, out = reverse_case(kind, sel, wrappers,
+                                                        seed)
+            row["cases"].append(out)
+        row["memory"][kind] = reverse_memory(model, xs, targets, st0)
+        del model, xs, targets, st0
+        torch.cuda.empty_cache()
+        row["replay"][kind] = reading = replay_reading(kind, seed)
+        in_use = getattr(rl_wrappers, f"{kind.upper()}_REVERSE_BWD")
+        check(in_use == reading["reverse_wins"],
+              f"{kind}: rl/wrappers.py's {kind.upper()}_REVERSE_BWD is "
+              f"{in_use}, but the replay reading {reading['ms_median']} "
+              f"says reverse_wins={reading['reverse_wins']}")
+    row["reverse_bwd_in_use"] = dict(ring=rl_wrappers.RING_REVERSE_BWD,
+                                     dense=rl_wrappers.DENSE_REVERSE_BWD)
+    emit("reverse", seconds=time.perf_counter() - t_phase, **row)
+
+
+# -- phase 19: the fast-core actor-critics ------------------------------------
+
+POLICY_THRESHOLD = 0.25  # EuclideanEdge's, on CartPole's masked observations
+
+
+def policy_selector(family: str):
+    from gcm_tpu_torch import DenseEdge, EuclideanEdge, TemporalBackedge
+
+    return {"banded": lambda: TemporalBackedge([1, 2]),
+            "clique": DenseEdge,
+            "banded_scored": lambda: EuclideanEdge(POLICY_THRESHOLD,
+                                                   window=8)}[family]()
+
+
+def policy_of(core: str, family: str, device: str, seed: int, N: int = 16):
+    """GCMActorCritic at the RL phase's CartPole widths (obs 2, actions
+    2, widths 64) with the family's selector on `core`."""
+    from gcm_tpu_torch import GCMActorCritic
+
+    usage = "trajectory_train" if family == "banded_scored" else "rl"
+    return GCMActorCritic(2, 2, 2, core=core, graph_size=N, usage=usage,
+                          edge_selectors=policy_selector(family),
+                          device=device,
+                          generator=torch.Generator().manual_seed(seed))
+
+
+@contextlib.contextmanager
+def scored_forcing(card, cpu):
+    """Teacher-forces the CPU copy's banded scored core on the card core's
+    edges inside the block. The card's band rows are recorded: each step's
+    inserted row while it collects, the window's rows [B, T, w] when it
+    replays. The CPU core computes its own rows, checks that every entry
+    where they differ from the card's lies within NEAR_TIE of the threshold
+    by its own score, and then takes the card's rows (its steps in the
+    card's order, its window after the card's). Yields the counts of
+    differing entries and the largest margin among them."""
+    from gcm_tpu_torch.models import banded_gcm
+
+    rec = dict(steps=[], window=None, dists=None, step_flips=0,
+               window_flips=0, largest_flip_margin=0.0)
+    originals = (banded_gcm.distance_scores,
+                 banded_gcm.distance_scores_per_step)
+    cls = type(card)
+
+    def keep(fn):
+        def wrapped(*args):
+            rec["dists"] = fn(*args)
+            return rec["dists"]
+        return wrapped
+
+    def forced(own, want, key):
+        diff = own != want
+        margins = (rec["dists"][diff] - POLICY_THRESHOLD).abs()
+        worst = float(margins.max()) if margins.numel() else 0.0
+        check(worst < NEAR_TIE, f"banded_scored: the CPU copy's edge "
+              f"differs from the card's at a score margin {worst} >= "
+              f"{NEAR_TIE}")
+        rec[key] += int(diff.sum())
+        rec["largest_flip_margin"] = max(rec["largest_flip_margin"], worst)
+        return want.to(own.dtype)
+
+    def card_score_row(x, nodes, p, t):
+        row = cls._score_row(card, x, nodes, p, t)
+        rec["steps"].append(row.cpu())
+        return row
+
+    def card_window_rows(xs, state, dones, rows):
+        out = cls._window_rows(card, xs, state, dones, rows)
+        rec["window"] = out[0].detach().cpu()
+        return out
+
+    def cpu_score_row(x, nodes, p, t):
+        own = cls._score_row(cpu, x, nodes, p, t)
+        return forced(own, rec["steps"].pop(0), "step_flips")
+
+    def cpu_window_rows(xs, state, dones, rows):
+        S, *rest = cls._window_rows(cpu, xs, state, dones, rows)
+        return (forced(S, rec["window"], "window_flips"), *rest)
+
+    banded_gcm.distance_scores = keep(originals[0])
+    banded_gcm.distance_scores_per_step = keep(originals[1])
+    card._score_row, card._window_rows = card_score_row, card_window_rows
+    cpu._score_row, cpu._window_rows = cpu_score_row, cpu_window_rows
+    try:
+        yield rec
+    finally:
+        banded_gcm.distance_scores, banded_gcm.distance_scores_per_step = \
+            originals
+        for m in (card, cpu):
+            del m._score_row, m._window_rows
+        rec.pop("steps"), rec.pop("window"), rec.pop("dists")
+
+
+def greedy_collect(pol, env, generator, B, T):
+    """T greedy steps (argmax of the logits) from fresh episodes, the
+    memory of an ended episode wiped: {obs, actions, rewards, dones,
+    prev_actions, logits}, each [B, T, ...]."""
+    from gcm_tpu_torch import reset_where
+
+    obs, env_state = env.reset(generator, B)
+    mem = pol.initial_state(B)
+    prev = torch.zeros(B, dtype=torch.int64, device=obs.device)
+    steps = []
+    with torch.no_grad():
+        for _ in range(T):
+            logits, _, mem = pol.step(obs, mem, prev_action=prev)
+            action = logits.argmax(-1)
+            nobs, reward, done, env_state = env.step(env_state, action,
+                                                     generator)
+            steps.append((obs, action, reward, done, prev, logits))
+            mem = reset_where(mem, done)
+            prev = torch.where(done, 0, action)
+            obs = nobs
+    keys = ("obs", "actions", "rewards", "dones", "prev_actions", "logits")
+    return {k: torch.stack(v, dim=1) for k, v in zip(keys, zip(*steps))}
+
+
+def forced_logits(pol, traj):
+    """The policy's step logits over a collected trajectory's own
+    observations and episode ends (teacher-forced), [B, T, A]."""
+    from gcm_tpu_torch import reset_where
+
+    B, T = traj["obs"].shape[:2]
+    mem, out = pol.initial_state(B), []
+    with torch.no_grad():
+        for t in range(T):
+            logits, _, mem = pol.step(traj["obs"][:, t], mem,
+                                      prev_action=traj["prev_actions"][:, t])
+            out.append(logits)
+            mem = reset_where(mem, traj["dones"][:, t])
+    return torch.stack(out, dim=1)
+
+
+def policy_check(family, wrappers, seed, B=64, T=64):
+    """The fast core's policy at N = 16: greedy collection on the card
+    against a CPU copy stepped over the same observations (logits within
+    1e-4, greedy actions equal but where the card's two logits tie within
+    1e-5), the A2C replay's launches (the window: 0 of fused_dense_gnn),
+    and its loss and gradients against the CPU copy's (1e-4). The scored
+    core's CPU copy is teacher-forced on the card's edges (scored_forcing),
+    and every edge that differs must lie within NEAR_TIE of the
+    threshold."""
+    from gcm_tpu_torch import A2C, CartPoleEnv
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 90)
+    env = CartPoleEnv(horizon=T, masked_velocity=True, reward_scale=0.05)
+    env_cpu = CartPoleEnv(horizon=T, masked_velocity=True, reward_scale=0.05,
+                          device="cpu")
+    pol = policy_of(family, family, "cuda", seed)
+    cpu = cpu_copy(pol, lambda d: policy_of(family, family, d, seed))
+    a2c = A2C(env, pol, rollout_len=T)
+    forcing = (scored_forcing(pol.core, cpu.core) if family ==
+               "banded_scored" else contextlib.nullcontext())
+    with forcing as forced:
+        traj = greedy_collect(pol, env, g, B, T)
+        replay = {k: v for k, v in traj.items() if k != "logits"}
+        _, l_replay = launches_of(
+            lambda: a2c.loss(replay)[0].backward(), wrappers)
+        check(l_replay["fused_dense_gnn"] == 0,
+              f"{family}: the replay launched {l_replay}, not the window")
+        window = pol.uses_window(traj["dones"], train=True)
+        check(window, f"{family}: the replay does not take the window")
+        want = forced_logits(cpu, {k: v.cpu() for k, v in traj.items()})
+        got = traj["logits"].cpu()
+        err = float((got - want).abs().max())
+        top2 = got.topk(2, dim=-1).values
+        tie = (top2[..., 0] - top2[..., 1]) < NEAR_TIE
+        flips = int(((got.argmax(-1) != want.argmax(-1)) & ~tie).sum())
+        check(err <= TOL_MODEL and flips == 0, f"{family}: greedy "
+              f"collection differs from the CPU copy: logits {err}, {flips} "
+              f"actions apart")
+        grads = grads_vs_cpu(f"{family} a2c", A2C(env, pol, rollout_len=T),
+                             A2C(env_cpu, cpu, rollout_len=T), replay)
+    return dict(family=family, B=B, T=T, graph_size=16,
+                logits_max_abs_err_vs_cpu=err, greedy_action_flips=flips,
+                logit_ties=int(tie.sum()), replay_takes_window=window,
+                replay_launches=l_replay, grads_vs_cpu=grads,
+                teacher_forced_edges=forced,
+                episode_ends=int(traj["dones"].sum()))
+
+
+def policy_timing(family, seed, N, B=64, T=64, rounds=5):
+    """The fast core against "dense" with the family's selector at graph
+    size N, in turns: ms of an A2C update (collect and replay), or for
+    banded_scored of a trajectory-train step (make_trajectory_supervised_
+    step: the scored core's window, DenseGCM's scan) on [B, T, 2]."""
+    from gcm_tpu_torch import (A2C, CartPoleEnv,
+                               make_trajectory_supervised_step)
+
+    g = torch.Generator(device="cuda").manual_seed(seed + N)
+    env = CartPoleEnv(horizon=T, masked_velocity=True, reward_scale=0.05)
+    fns = {}
+    for core in (family, "dense"):
+        pol = policy_of(core, family, "cuda", seed, N)
+        if family == "banded_scored":
+            xs = torch.randn((B, T, 2), generator=torch.Generator().manual_seed(
+                seed)).cuda() * 0.3
+            targets = torch.zeros((B, T, 64), device="cuda")
+            step = make_trajectory_supervised_step(
+                pol.core, torch.optim.Adam(pol.core.parameters(), 1e-3),
+                remat=False)
+            fns[core] = (lambda step=step, xs=xs, targets=targets:
+                         step(xs, targets))
+        else:
+            a2c = A2C(env, pol, rollout_len=T)
+            fns[core] = lambda a2c=a2c: a2c.update(g, B)
+    ms = {k: [] for k in fns}
+    for fn in fns.values():
+        timed(fn)
+    for r in range(rounds):
+        for core in ((family, "dense") if r % 2 else ("dense", family)):
+            ms[core].append(1e3 * timed(fns[core])[1])
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    return dict(N=N, unit=("trajectory_train_step" if family ==
+                           "banded_scored" else "a2c_update"),
+                ms=ms, ms_median=med, fast_wins=med[family] < med["dense"])
+
+
+def policy_phase(card: str, seed: int = 0):
+    """GCMActorCritic with core="banded", "clique", "banded_scored" and
+    "auto" at the RL phase's CartPole shapes (B=64, T=64, graph 16, widths
+    64): each fast core against a CPU copy (policy_check); then for each
+    auto family the fast core against "dense" at N = 32 and 256 in turns
+    (policy_timing), which must find the fast core winning at both sizes,
+    and what core="auto" resolves to, which must be the fast core (the
+    rule in rl/wrappers.py; a family whose fast core lost would need a rule
+    of its own, so the run fails there)."""
+    from gcm_tpu_torch.ops.cuda.fused_gnn import (fused_dense_gnn,
+                                                  fused_dense_gnn_bwd)
+    t_phase = time.perf_counter()
+    wrappers = {"fused_dense_gnn": fused_dense_gnn,
+                "fused_dense_gnn_bwd": fused_dense_gnn_bwd}
+    row = dict(card=card, threshold=POLICY_THRESHOLD, checks=[], timing={},
+               auto={})
+    for family in ("banded", "clique", "banded_scored"):
+        row["checks"].append(policy_check(family, wrappers, seed))
+        readings = [policy_timing(family, seed, N) for N in (32, 256)]
+        won = all(r["fast_wins"] for r in readings)
+        check(won, f"{family}: the fast core lost to 'dense' in "
+              f"{readings}, and core='auto' would still resolve to it")
+        resolved = policy_of("auto", family, "cuda", seed).cfg["core"]
+        check(resolved == family,
+              f"core='auto' resolved {family}'s selector to {resolved}")
+        row["timing"][family] = readings
+        row["auto"][family] = dict(won_at_both_sizes=won,
+                                   resolves_to=resolved)
+    emit("policy", seconds=time.perf_counter() - t_phase, **row)
+
+
+# -- phase 20: the runtime -----------------------------------------------------
+
+def resilient_trainer():
+    """tests/test_train_utils.py's trainer on the card: A2C over
+    RecallEnv(2 symbols, horizon 4, noise 2) with the ring policy (graph
+    5, widths 8, TemporalBackedge([1]))."""
+    from gcm_tpu_torch import A2C, GCMActorCritic, RecallEnv, TemporalBackedge
+
+    env = RecallEnv(num_symbols=2, horizon=4, noise_dim=2)
+    pol = GCMActorCritic(env.obs_dim, env.num_actions, env.num_actions,
+                         graph_size=env.horizon + 1, gnn_input_size=8,
+                         gnn_output_size=8,
+                         edge_selectors=TemporalBackedge([1]),
+                         generator=torch.Generator().manual_seed(0))
+    return A2C(env, pol)
+
+
+def resilient_check(root: str) -> dict:
+    """6 updates straight against 4, a restart, and 2 more: the
+    parameters bitwise equal."""
+    import os
+
+    from gcm_tpu_torch.train.resilient import train_resilient
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(7)
+
+    full, _ = train_resilient(resilient_trainer(), os.path.join(root, "full"),
+                              updates=6, B=4, generator=gen(),
+                              checkpoint_every=2)
+    train_resilient(resilient_trainer(), os.path.join(root, "crashed"),
+                    updates=4, B=4, generator=gen(), checkpoint_every=2)
+    resumed, hist = train_resilient(
+        resilient_trainer(), os.path.join(root, "crashed"), updates=6, B=4,
+        generator=gen(), checkpoint_every=2)
+    check(len(hist) == 2, f"the resumed run ran {len(hist)} updates, not 2")
+    same = all(bitwise_equal(full[k], resumed[k]) for k in full)
+    check(same, "resumed training differs from the uninterrupted run")
+    return dict(updates=6, resumed_at=4, params=len(full), bitwise=same)
+
+
+def export_check(kind: str, wrappers, seed: int = 0, B: int = 256,
+                 ticks: int = 3) -> dict:
+    """export_step / load_step of the README DenseGCM ("temporal") or its
+    CosineEdge(0.5) model: `ticks` ticks of the loaded program bitwise
+    equal to the eager step's beliefs and states, its launches of the
+    served kernels, the profiler's count of each served kernel over
+    `ticks` loaded and eager ticks (one a tick, after a warm-up tick inside
+    the profiler), the kernels one tick profiled without the warm-up
+    records, and µs per tick eager and loaded (median of 20)."""
+    from gcm_tpu_torch.serve.export import export_step, load_step
+
+    model = selector_model(kind, "cuda", seed)
+    rng = np.random.default_rng(seed + 33)
+    obs = [torch.from_numpy(rng.standard_normal((B, 8)).astype(
+        np.float32)).cuda() for _ in range(ticks)]
+    state = model.initial_state(B, 8)
+    (blob, _), secs = timed(lambda: export_step(model, obs[0], state))
+    step = load_step(blob)
+
+    def run_loaded():
+        st, out = state, []
+        for x in obs:
+            b, st = step(x, st)
+            out.append((b, st))
+        return out
+
+    loaded, launched = launches_of(run_loaded, wrappers)
+    st = state
+    for x, (b_l, st_l) in zip(obs, loaded):
+        with torch.no_grad():
+            b_e, st = model(x, st)
+        check(bitwise_equal(b_l, b_e) and all(
+            bitwise_equal(a, b) for a, b in zip(st_l, st)),
+            f"export {kind}: the loaded step differs from the eager step")
+    want = {"fused_dense_gnn": ticks,
+            "sddmm_threshold_row": ticks if kind == "cosine" else 0}
+    check(all(launched[k] == v for k, v in want.items()),
+          f"export {kind}: the loaded program launched {launched}, not "
+          f"{want}")
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def kernels_seen(fn, warmup=1):
+        """{kernel name: count} the profiler records over the ticks, after
+        `warmup` ticks that it runs but does not keep."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=warmup, active=ticks,
+                                       repeat=1)) as prof:
+            st = state
+            for x in obs[:warmup] + obs:
+                with torch.no_grad():
+                    _, st = fn(x, st)
+                torch.cuda.synchronize()
+                prof.step()
+        counts = {}
+        for n, _, c in device_events(prof):
+            counts[n] = counts.get(n, 0) + c
+        return counts
+
+    def served_counts(counts):
+        return {k: sum(c for n, c in counts.items() if k + "_kernel<" in n)
+                for k in ("dense_gnn", "sddmm_threshold_row")}
+
+    names = {"loaded": kernels_seen(step), "eager": kernels_seen(model)}
+    seen = {side: served_counts(c) for side, c in names.items()}
+    want_seen = {"dense_gnn": ticks,
+                 "sddmm_threshold_row": want["sddmm_threshold_row"]}
+    check(all(s == want_seen for s in seen.values()),
+          f"export {kind}: the profiler counts {seen} of the served kernels, "
+          f"not {want_seen} on each side; it records {names}")
+    # one tick with no warm-up inside the profiler, as this check first
+    # profiled it: recorded, not checked
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as cold:
+        with torch.no_grad():
+            step(obs[0], state)
+        torch.cuda.synchronize()
+    cold_names = sorted({n for n, _, _ in device_events(cold)})
+    us = {}
+    for label, fn in (("eager", model), ("loaded", step)):
+        ts = []
+        for _ in range(21):
+            with torch.no_grad():
+                ts.append(timed(lambda: fn(obs[0], state))[1])
+        us[label] = 1e6 * statistics.median(ts[1:])
+    return dict(kind=kind, B=B, ticks=ticks, blob_bytes=len(blob),
+                export_s=secs, bitwise=True, launches=launched,
+                profiler_counts=seen, profiled_kernels=sorted(names["loaded"]),
+                one_cold_tick_records=cold_names,
+                one_cold_tick_counts=served_counts(dict.fromkeys(
+                    cold_names, 1)),
+                us_per_tick_median=us)
+
+
+def op_dispatch_cost(seed: int = 0, calls: int = 200, rounds: int = 6):
+    """Host µs a call of fused_dense_gnn at the served tick's shape (B=256,
+    N=128, 32 -> 32 -> 32, tanh) three ways, in turns (median of `rounds`
+    runs of `calls` calls, each run ending in a synchronize): through its
+    torch.library op, as an exported program calls it; through the eager
+    wrapper, which eager and training calls take; and through the bare
+    launcher. op - wrapper is what the op's dispatch adds to each served
+    kernel of a loaded step, wrapper - launcher what the wrapper adds to an
+    eager one."""
+    from gcm_tpu_torch.ops.cuda import fused_gnn
+
+    x, adj, *flat = make_case(256, 128, (32, 32, 32), seed)
+    acts = ("tanh", "tanh")
+    codes = [fused_gnn.ACT_CODES[a] for a in acts]
+    fns = {"op": lambda: fused_gnn._op(x, adj, flat, codes),
+           "wrapper": lambda: fused_gnn.fused_dense_gnn(x, adj, flat, acts),
+           "launcher": lambda: fused_gnn._launch(x, adj, flat, acts)}
+    us = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()
+    for r in range(rounds):
+        order = list(fns) if r % 2 else list(fns)[::-1]
+        for k in order[r % 3:] + order[:r % 3]:
+            def run(fn=fns[k]):
+                for _ in range(calls):
+                    fn()
+            us[k].append(1e6 * timed(run)[1] / calls)
+    med = {k: statistics.median(v) for k, v in us.items()}
+    return dict(calls=calls, us_per_call=us, us_median=med,
+                op_minus_wrapper_us=med["op"] - med["wrapper"],
+                wrapper_minus_launcher_us=med["wrapper"] - med["launcher"])
+
+
+def runtime_phase(card: str, seed: int = 0):
+    """The runtime on the card: train_resilient (6 updates straight against
+    4, a restart and 2 more: parameters bitwise equal); export_step /
+    load_step of the README DenseGCM and its CosineEdge model (3 ticks
+    bitwise equal to the eager step, rows 1 and 5 launched inside the
+    loaded program, by their counts and the profiler); nan_guard tripping
+    on a NaN observation; what the op's dispatch costs a fused_dense_gnn
+    call of a loaded step on the host (op_dispatch_cost); the peaks
+    bound_ms reads from
+    gcm_tpu_torch/utils/roofline.py."""
+    import tempfile
+
+    from gcm_tpu_torch.ops.cuda.fused_gnn import fused_dense_gnn
+    from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
+    from gcm_tpu_torch.utils import roofline
+    from gcm_tpu_torch.utils.debug import nan_guard
+
+    t_phase = time.perf_counter()
+    wrappers = {"fused_dense_gnn": fused_dense_gnn,
+                "sddmm_threshold_row": sddmm_threshold_row}
+    row = dict(card=card)
+    with tempfile.TemporaryDirectory() as root:
+        row["resilient"] = resilient_check(root)
+    row["export"] = [export_check(k, wrappers, seed)
+                     for k in ("temporal", "cosine")]
+    model = selector_model("temporal", "cuda", seed)
+
+    def served(x, st):
+        with torch.no_grad():
+            return model(x, st)
+
+    guarded = nan_guard(served)
+    state = model.initial_state(4, 8)
+    guarded(torch.ones((4, 8), device="cuda"), state)
+    tripped = False
+    try:
+        guarded(torch.full((4, 8), float("nan"), device="cuda"), state)
+    except FloatingPointError:
+        tripped = True
+    check(tripped, "nan_guard let a NaN observation through")
+    row["nan_guard_trips"] = tripped
+    row["op_dispatch"] = op_dispatch_cost(seed)
+    row["roofline_peaks"] = dict(hbm_bytes_per_s=roofline.HBM_BYTES_PER_S,
+                                 f32_flops_per_s=roofline.F32_FLOPS_PER_S,
+                                 tf32_flops_per_s=roofline.TF32_FLOPS_PER_S)
+    emit("runtime", seconds=time.perf_counter() - t_phase, **row)
+
+
 KERNEL_META = {
     "fused_dense_gnn": dict(
         source="gcm_tpu_torch/csrc/dense_gnn.cu",
@@ -4430,6 +5134,9 @@ def main() -> int:
         (host_phase, ("spmm_edge_list",)),
         (nav_phase, ("fused_dense_graph_conv", "fused_dense_gnn_bwd")),
         (fast_phase, ("fused_dense_gnn", "fused_dense_gnn_bwd")),
+        (reverse_phase, ("fused_dense_gnn", "fused_dense_gnn_bwd")),
+        (policy_phase, ("fused_dense_gnn", "fused_dense_gnn_bwd")),
+        (runtime_phase, ("fused_dense_gnn", "sddmm_threshold_row")),
     ]
     launches = dict.fromkeys(wrappers, 0)
     for phase, kernels in paths:

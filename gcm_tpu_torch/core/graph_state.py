@@ -157,3 +157,12 @@ def _reset_sparse(state, mask_for):
         t=torch.where(mask_for(t), 0, t),
         num_edges=torch.where(mask_for(num_edges), 0, num_edges),
     )
+
+
+def node_validity_mask(num_nodes: torch.Tensor, N: int,
+                       inclusive: bool = False) -> torch.Tensor:
+    """[B, N] mask of the rows < num_nodes (<= where inclusive)."""
+    iota = torch.arange(N, device=num_nodes.device)[None, :]
+    if inclusive:
+        return iota <= num_nodes[:, None]
+    return iota < num_nodes[:, None]

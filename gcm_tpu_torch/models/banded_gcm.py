@@ -48,6 +48,8 @@ from gcm_tpu_torch.nn.dense_conv import (DenseGNN, conv_project,
 from gcm_tpu_torch.ops.distance import (cosine_score, euclidean_score,
                                         euclidean_score_per_step,
                                         spatial_score)
+from gcm_tpu_torch.utils.contracts import Float, checked
+
 
 class BandedState(NamedTuple):
     nodes: torch.Tensor  # [B, N, F] slot-indexed raw observations
@@ -251,7 +253,8 @@ class BandedRingGCM(_FastCore):
             masks.append((alive & had_pred & src_alive).to(torch.float32))
         return masks
 
-    def forward(self, x, state: BandedState):
+    @checked
+    def forward(self, x: Float["B F"], state: BandedState):
         """x [B, obs] -> (belief [B, F_out], new state)."""
         nodes, t = state
         N = self.graph_size
@@ -461,7 +464,8 @@ class BandedScoredGCM(_FastCore):
             h.shape[0], *src.shape, h.shape[-1])
         return torch.einsum("bxk,bxkf->bxf", m, g), m.sum(-1)
 
-    def forward(self, x, state: BandedScoredState):
+    @checked
+    def forward(self, x: Float["B F"], state: BandedScoredState):
         """x [B, obs] -> (belief [B, F_out], new state)."""
         nodes, band, t = state
         N, w = self.graph_size, self.window_size

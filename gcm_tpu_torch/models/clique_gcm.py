@@ -29,6 +29,7 @@ import torch
 from gcm_tpu_torch.models.banded_gcm import (BandedState, _FastCore,
                                              _gather_rows, _insert,
                                              _ring_final, _window_time)
+from gcm_tpu_torch.utils.contracts import Float, checked
 
 
 def _alive_sum(h, alive):
@@ -62,7 +63,8 @@ class CliqueGCM(_FastCore):
             out = torch.clamp(out, min=0.0)
         return out
 
-    def forward(self, x, state: BandedState):
+    @checked
+    def forward(self, x: Float["B F"], state: BandedState):
         """x [B, obs] -> (belief [B, F_out], new state)."""
         nodes, t = state
         N = self.graph_size

@@ -40,10 +40,9 @@ from gcm_tpu_torch.edges.dense import DenseEdge
 from gcm_tpu_torch.edges.distance import Distance
 from gcm_tpu_torch.edges.learned import LearnedEdge
 from gcm_tpu_torch.edges.temporal import TemporalBackedge
+from gcm_tpu_torch.utils.contracts import Bool, Float, checked
 from gcm_tpu_torch.utils.ste import noise_for, noise_shape, ste
 from gcm_tpu_torch.utils.validation import check_dense_inputs
-
-FAST_CORES = "ROADMAP Queue 1 item 7 (the fast cores)"
 
 
 class _RowColAcc:
@@ -174,7 +173,8 @@ class DenseGCM(nn.Module):
                                 generator, self.device)
                 for name in ("edge_selectors", "aux_edge_selectors")}
 
-    def forward(self, x: torch.Tensor, state: DenseGraphState,
+    @checked
+    def forward(self, x: Float["B F"], state: DenseGraphState,
                 generator: torch.Generator | None = None, noise=None):
         """x [B, obs] -> (belief [B, F_out], new state); with pooled=True
         the belief is the GNN's whole output (e.g. [B, N, F_out]).
@@ -260,7 +260,9 @@ class DenseGCM(nn.Module):
         mx = node_feats if self.pooled else node_feats[b_idx, num2.long()]
         return mx, DenseGraphState(nodes, adj, weights, num2 + 1)
 
-    def scan(self, xs: torch.Tensor, state: DenseGraphState, dones=None,
+    @checked
+    def scan(self, xs: Float["B T F"], state: DenseGraphState,
+             dones: Bool["B T"] | None = None,
              remat: bool = False, unroll: int | None = None,
              generator: torch.Generator | None = None, noise=None):
         """Run the recurrence over a trajectory xs [B, T, obs] -> (beliefs
@@ -270,17 +272,24 @@ class DenseGCM(nn.Module):
         step t. remat=True keeps no step's intermediates for the backward
         but its inputs, and recomputes the step there (one checkpoint a
         step, with the step's noise drawn before it, so the recomputation
-        sees the same noise). remat="reverse" (the reversible backward)
-        raises until it is ported; any other non-bool remat raises
-        ValueError. `unroll` is accepted only at its default: it
-        is a compile knob of XLA's scan with no meaning in eager PyTorch."""
+        sees the same noise). remat="reverse" is the reversible backward
+        (models/dense_reversible.py: no dones, no edge_weights, selectors
+        with a fused step, else ValueError naming the one that fails); any
+        other non-bool remat raises ValueError. `unroll` is accepted only
+        at its default: it is a compile knob of XLA's scan with no meaning
+        in eager PyTorch."""
         if unroll is not None:
             raise NotImplementedError(
                 "unroll is an XLA scan compile knob with no eager meaning")
         if remat == "reverse":
-            raise NotImplementedError(
-                f"remat='reverse' (the reversible backward) waits for "
-                f"{FAST_CORES}")
+            from gcm_tpu_torch.models.dense_reversible import (
+                dense_reversible_refusal, dense_reversible_scan)
+
+            reason = dense_reversible_refusal(self, dones)
+            if reason is not None:
+                raise ValueError(reason)
+            return dense_reversible_scan(self, xs, state, noise=noise,
+                                         generator=generator)
         if not isinstance(remat, bool):
             raise ValueError(f"remat must be True, False or 'reverse', not "
                              f"{remat!r}")

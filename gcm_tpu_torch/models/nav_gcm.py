@@ -43,6 +43,8 @@ from gcm_tpu_torch.nn.dense_conv import (_CONVS, DenseGraphConv,
                                          conv_project)
 from gcm_tpu_torch.nn.nav_conv import NavPoseGNN, NavRelPosConv
 from gcm_tpu_torch.ops.scatter import rows_set
+from gcm_tpu_torch.utils.contracts import Float, Int, checked
+
 
 # nav_core's crossover: maps of at least this many vertices take the
 # incremental core. Set from chip_smoke.py's nav gate on the card (a tau = 1
@@ -179,7 +181,9 @@ class NavGCM(nn.Module):
             else pair_ok
         return knn_cap(d, mask, self.k)
 
-    def forward(self, x, pos, rot, taus, state: NavState):
+    @checked
+    def forward(self, x: Float["B t F"], pos: Float["B t P"],
+                rot: Float["B t R"], taus: Int["B"], state: NavState):
         """x [B, t, F], pos [B, t, P], rot [B, t, R], taus [B] -> (output
         [B, t, F_out], zero past each taus[b], new state)."""
         B, t, _ = x.shape
@@ -298,7 +302,9 @@ class NavGCMIncremental(nn.Module):
                 agg = agg / torch.clamp_min(a.sum(-1, keepdim=True), 1.0)
         return conv_project(conv, agg, x_rows)
 
-    def forward(self, x, pos, rot, taus, state: NavIncState):
+    @checked
+    def forward(self, x: Float["B t F"], pos: Float["B t P"],
+                rot: Float["B t R"], taus: Int["B"], state: NavIncState):
         B, t, _ = x.shape
         V = self.max_verts
         old_x, old_pos, old_rot, caches, T = state

@@ -30,8 +30,8 @@ B, N], as the JAX ring does.
 
 `window()` is the scan-free forward of models/ring_window.py, with its
 card-measured gates `window_profitable` and `window_applicable`;
-`scan(remat="reverse")` (the reversible backward) belongs to the fast
-cores of ROADMAP Queue 1 item 7 and raises until then.
+`scan(remat="reverse")` is the reversible backward of
+models/ring_reversible.py.
 """
 
 from __future__ import annotations
@@ -51,10 +51,10 @@ from gcm_tpu_torch.edges.distance import (CosineEdge, Distance, EuclideanEdge,
                                           SpatialEdge)
 from gcm_tpu_torch.edges.learned import LearnedEdge
 from gcm_tpu_torch.edges.temporal import TemporalBackedge
-from gcm_tpu_torch.models.dense_gcm import FAST_CORES
 from gcm_tpu_torch.models.positional import PositionalEncoding
 from gcm_tpu_torch.ops.cuda.sddmm import sddmm_threshold_row
 from gcm_tpu_torch.ops.distance import euclidean_score
+from gcm_tpu_torch.utils.contracts import Float, checked
 from gcm_tpu_torch.utils.ste import (diff_or, gumbel_softmax, noise_for,
                                      spardmax, ste)
 from gcm_tpu_torch.utils.validation import check_ring_inputs
@@ -299,7 +299,8 @@ class RingDenseGCM(nn.Module):
         return nodes
 
     # -- one timestep ------------------------------------------------------
-    def forward(self, x: torch.Tensor, state: RingGraphState,
+    @checked
+    def forward(self, x: Float["B F"], state: RingGraphState,
                 generator: torch.Generator | None = None, noise=None):
         """x [B, obs] -> (belief [B, F_out] at slot p, new state); with
         pooled=True the GNN's whole output."""
@@ -377,16 +378,24 @@ class RingDenseGCM(nn.Module):
         where dones[b, t]. Stochastic selectors draw from `generator` or
         take noise[t] at step t. remat=True recomputes each step in the
         backward (one checkpoint a step); an int K checkpoints chunks of K
-        steps (T % K == 0), keeping only the state at chunk boundaries.
-        Every choice gives the same forward. `unroll` (an XLA scan knob)
-        is accepted only at its default."""
+        steps (T % K == 0), keeping only the state at chunk boundaries;
+        "reverse" keeps only each step's evicted rows and restores the
+        states in the backward (models/ring_reversible.py: no dones, no
+        edge_weights, else ValueError naming the one that fails). Every
+        choice gives the same forward. `unroll` (an XLA scan knob) is
+        accepted only at its default."""
         if unroll is not None:
             raise NotImplementedError(
                 "unroll is an XLA scan compile knob with no eager meaning")
         if remat == "reverse":
-            raise NotImplementedError(
-                f"remat='reverse' (the reversible backward) waits for "
-                f"{FAST_CORES}")
+            from gcm_tpu_torch.models.ring_reversible import (
+                reversible_refusal, reversible_scan)
+
+            reason = reversible_refusal(self, dones)
+            if reason is not None:
+                raise ValueError(reason)
+            return reversible_scan(self, xs, state, noise=noise,
+                                   generator=generator)
         B, T = xs.shape[0], xs.shape[1]
         noises = [self.step_noise(B, generator) if noise is None
                   else noise[t] for t in range(T)]

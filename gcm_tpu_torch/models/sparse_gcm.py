@@ -50,6 +50,7 @@ from gcm_tpu_torch.device import resolve_device
 from gcm_tpu_torch.ops.cuda.spmm_slots import W, bucket_sink_slots, spmm_slots
 from gcm_tpu_torch.ops.scatter import (append_edges, nonzero_padded,
                                        rows_set, take_along)
+from gcm_tpu_torch.utils.contracts import Bool, Float, Int, checked
 from gcm_tpu_torch.utils.ste import grad_preserving_ones
 from gcm_tpu_torch.utils.validation import check_sparse_inputs
 
@@ -137,8 +138,10 @@ class SparseGCM(nn.Module):
         gate = getattr(sel, "emit_profitable", None)
         return self.emit is True or gate is None or gate(t, N)
 
-    def forward(self, x, taus, state: SparseGraphState,
-                return_aux: bool = False, dones=None,
+    @checked
+    def forward(self, x: Float["B t F"], taus: Int["B"],
+                state: SparseGraphState, return_aux: bool = False,
+                dones: Bool["B t"] | None = None,
                 generator: torch.Generator | None = None, noise=None):
         """x [B, t, F] zero-padded window, taus [B] valid lengths; dones
         [B, t] optional episode ends inside the window, after which no edge

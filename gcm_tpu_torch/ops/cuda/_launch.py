@@ -7,6 +7,7 @@ import ctypes
 import torch
 
 ACT_CODES = {None: 0, "tanh": 1, "relu": 2}
+ACT_NAMES = {code: name for name, code in ACT_CODES.items()}
 
 
 def apply_act(h: torch.Tensor, act) -> torch.Tensor:
@@ -25,6 +26,38 @@ def needs_grad(*tensors) -> bool:
     launcher directly, with no autograd node and no saved tensors."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
+
+
+def exporting() -> bool:
+    """Whether torch.export is tracing the call. Only then do the served
+    step's kernels (fused_dense_gnn, fused_dense_graph_conv and
+    sddmm_threshold_row's two entries) go through their torch.library ops:
+    an op's dispatch costs a call host time, and eager and training calls
+    reach the same launcher without it."""
+    is_exporting = getattr(torch.compiler, "is_exporting", None)
+    return is_exporting is not None and is_exporting()
+
+
+def refuse_export(name: str) -> None:
+    """Raise under torch.export for a kernel that is not registered as a
+    torch.library op: its ctypes launch cannot be traced (serve/export.py
+    exports only the served step's kernels, see `exporting`)."""
+    if exporting():
+        raise NotImplementedError(
+            f"{name} is not a torch.library op, so torch.export cannot "
+            f"trace it; only a step whose kernels are fused_dense_gnn, "
+            f"fused_dense_graph_conv and sddmm_threshold_row exports")
+
+
+def check_op_device(name: str, *tensors: torch.Tensor) -> None:
+    """The device rule in front of a kernel's op: CPU tensors take the
+    plain version and CUDA tensors the kernel, inside the op; a tensor on
+    any other device (meta, say) raises here, where the op would hand it
+    to its fake and return a result no kernel computed."""
+    for t in tensors:
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
+                             f"{t.device}")
 
 
 def check_forward_only(*tensors: torch.Tensor) -> None:

@@ -12,6 +12,9 @@ Differentiable in x, adj and the three parameters (JAX's
 `ops/dispatch.py::dense_graph_conv`): a tracked call goes through
 `_FusedDenseGraphConv`, whose backward is the stack's,
 `fused_dense_gnn_bwd`, at one layer (csrc/dense_gnn_bwd.cu on the card).
+The forward is also the torch.library op `gcm::fused_dense_graph_conv`,
+which only a call traced by torch.export reaches, as the stack's
+`gcm::fused_dense_gnn`.
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ from __future__ import annotations
 import torch
 
 from gcm_tpu_torch.ops.cuda._launch import (
-    ACT_CODES, GRID, check_aligned16, check_cuda, check_rc, check_sizes,
-    needs_grad, pad_graph, ptr, stream_of, unpad_rows)
+    ACT_CODES, ACT_NAMES, GRID, check_aligned16, check_cuda, check_op_device,
+    check_rc, check_sizes, exporting, needs_grad, pad_graph, ptr, stream_of,
+    unpad_rows)
 from gcm_tpu_torch.ops.cuda.fused_gnn import (NEED_ADJ, NEED_PARAMS, NEED_X,
                                               _lib, fused_dense_gnn_bwd,
                                               fused_dense_gnn_plain)
@@ -59,11 +63,32 @@ def _launch(x, adj, w_rel, b_rel, w_root, activation):
     return out
 
 
-def _forward(x, adj, w_rel, b_rel, w_root, activation):
+def _run(x, adj, w_rel, b_rel, w_root, activation):
     if x.device.type == "cpu":
         return fused_dense_graph_conv_plain(x, adj, w_rel, b_rel, w_root,
                                             activation)
     return _launch(x, adj, w_rel, b_rel, w_root, activation)
+
+
+@torch.library.custom_op("gcm::fused_dense_graph_conv", mutates_args=())
+def _op(x: torch.Tensor, adj: torch.Tensor, w_rel: torch.Tensor,
+        b_rel: torch.Tensor, w_root: torch.Tensor,
+        act_code: int) -> torch.Tensor:
+    return _run(x, adj, w_rel, b_rel, w_root, ACT_NAMES[act_code])
+
+
+@_op.register_fake
+def _op_fake(x, adj, w_rel, b_rel, w_root, act_code):
+    return x.new_empty((x.shape[0], x.shape[1], w_rel.shape[-1]))
+
+
+def _forward(x, adj, w_rel, b_rel, w_root, activation):
+    if activation not in ACT_CODES:
+        raise ValueError(f"unsupported activation {activation}")
+    check_op_device("fused_dense_graph_conv", x, adj, w_rel, b_rel, w_root)
+    if exporting():
+        return _op(x, adj, w_rel, b_rel, w_root, ACT_CODES[activation])
+    return _run(x, adj, w_rel, b_rel, w_root, activation)
 
 
 class _FusedDenseGraphConv(torch.autograd.Function):

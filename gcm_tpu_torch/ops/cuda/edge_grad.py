@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from gcm_tpu_torch.ops import _build
-from gcm_tpu_torch.ops.cuda._launch import check_cuda, check_rc, ptr, stream_of
+from gcm_tpu_torch.ops.cuda._launch import (check_cuda, check_rc, ptr, refuse_export, stream_of)
 from gcm_tpu_torch.ops.scatter import edge_mask, gather_nodes
 
 PARTS = 32  # the order's parts: column f goes to part f % 32
@@ -119,6 +119,7 @@ def edge_weight_grad(g, x, edges):
     """g (the output's cotangent) and x [B,N,F], edges [B,2,E] -> dw [B,E].
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
+    refuse_export("edge_weight_grad")
     if x.device.type == "cpu":
         return edge_weight_grad_plain(g, x, edges)
     return _launch(g.contiguous(), x, edges)

@@ -16,6 +16,13 @@ them, the call goes through `_FusedDenseGnn`, whose backward is
 (it recomputes the layers' inputs, as the JAX package's backward replays
 its forward under jax.vjp) and `fused_dense_gnn_bwd_plain`, JAX's formulas
 written out, for CPU tensors. Untracked calls launch the forward directly.
+
+The forward is also the torch.library op `gcm::fused_dense_gnn` (with a
+fake for shapes), which a step exported by serve/export.py calls: the op
+wraps the same launcher, with the plain version for CPU tensors by the same
+device rule. Eager calls and the autograd Function reach the op only while
+torch.export traces them (`_launch.py::exporting`), and otherwise call the
+launcher directly, without the op's dispatch.
 """
 
 from __future__ import annotations
@@ -27,9 +34,9 @@ import torch
 
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.cuda._launch import (
-    ACT_CODES, GRID, apply_act, check_aligned16, check_cuda, check_rc,
-    check_sizes, grid_rows, needs_grad, pad_graph, ptr, stream_of, unpad_adj,
-    unpad_rows)
+    ACT_CODES, ACT_NAMES, GRID, apply_act, check_aligned16, check_cuda,
+    check_op_device, check_rc, check_sizes, exporting, grid_rows, needs_grad,
+    pad_graph, ptr, refuse_export, stream_of, unpad_adj, unpad_rows)
 
 NEED_X, NEED_ADJ, NEED_PARAMS = 1, 2, 4  # the backward's flags
 
@@ -162,10 +169,32 @@ def _launch(x, adj, flat_params, acts):
     return out
 
 
-def _forward(x, adj, flat_params, acts):
+def _run(x, adj, flat_params, acts):
     if x.device.type == "cpu":
         return fused_dense_gnn_plain(x, adj, flat_params, acts)
     return _launch(x, adj, flat_params, acts)
+
+
+@torch.library.custom_op("gcm::fused_dense_gnn", mutates_args=())
+def _op(x: torch.Tensor, adj: torch.Tensor, flat_params: list[torch.Tensor],
+        act_codes: list[int]) -> torch.Tensor:
+    out = _run(x, adj, flat_params, tuple(ACT_NAMES[c] for c in act_codes))
+    return out.clone() if out is x else out  # an op's output is new
+
+
+@_op.register_fake
+def _op_fake(x, adj, flat_params, act_codes):
+    width = flat_params[-1].shape[-1] if flat_params else x.shape[-1]
+    return x.new_empty((x.shape[0], x.shape[1], width))
+
+
+def _forward(x, adj, flat_params, acts):
+    if any(a not in ACT_CODES for a in acts):
+        raise ValueError(f"unsupported activations {acts}")
+    check_op_device("fused_dense_gnn", x, adj, *flat_params)
+    if exporting():
+        return _op(x, adj, list(flat_params), [ACT_CODES[a] for a in acts])
+    return _run(x, adj, flat_params, acts)
 
 
 class _FusedDenseGnn(torch.autograd.Function):
@@ -300,6 +329,7 @@ def fused_dense_gnn_bwd(x, adj, flat_params, acts, g, need, cluster=0):
     `cluster` blocks a batch element where it is not 0 (the planner's
     choice), as `fused_dense_gnn_bwd_plan` says; CPU tensors take the plain
     version."""
+    refuse_export("fused_dense_gnn_bwd")
     flat_params, acts = tuple(flat_params), tuple(acts)
     g = g.contiguous()
     if x.device.type == "cpu":

@@ -26,8 +26,8 @@ import functools
 import torch
 
 from gcm_tpu_torch.ops import _build
-from gcm_tpu_torch.ops.cuda._launch import (check_cuda, check_forward_only,
-                                            check_rc, ptr, stream_of)
+from gcm_tpu_torch.ops.cuda._launch import (
+    check_cuda, check_forward_only, check_rc, ptr, refuse_export, stream_of)
 
 
 def _wrap_or_fill(idx, size: int):
@@ -95,6 +95,7 @@ def _launch(wrapper, entry: str, x, idx, shape):
 def take_rows(x, idx):
     """x [R,C], idx [M] -> [M,C]: jnp.take(x, idx, axis=0). CUDA tensors
     launch the kernel (or raise); CPU tensors take the plain version."""
+    refuse_export("take_rows")
     shape = _check("take_rows", x, idx, lanes=False)
     if x.device.type == "cpu":
         return take_rows_plain(x, idx)
@@ -105,6 +106,7 @@ def take_lanes(x, idx):
     """x [R,C], idx [R,M] -> [R,M]: jnp.take_along_axis(x, idx, axis=1).
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
+    refuse_export("take_lanes")
     shape = _check("take_lanes", x, idx, lanes=True)
     if x.device.type == "cpu":
         return take_lanes_plain(x, idx)
@@ -115,6 +117,7 @@ def take_rows_loop(x, idx):
     """x [R,C], idx [M] -> [M,C]: out[j] = x[idx[j]] row after row, the
     index wrapped once and clamped. CUDA tensors launch the kernel (or
     raise); CPU tensors take the plain version."""
+    refuse_export("take_rows_loop")
     shape = _check("take_rows_loop", x, idx, lanes=False)
     if x.device.type == "cpu":
         return take_rows_loop_plain(x, idx)

@@ -15,7 +15,12 @@ nodes[:, :, cols], both read in place by the kernel. For CUDA tensors each
 launches the kernel (or raises); CPU tensors take the plain PyTorch
 versions. Both sum over features in order, one rounding per operation, so
 the card's masks are bitwise equal to the CPU's. Both entries count their
-launches on `sddmm_threshold_row.launches`. Forward only.
+launches on `sddmm_threshold_row.launches`. Forward only. Each entry is
+also a torch.library op (`gcm::sddmm_threshold_row`,
+`gcm::sddmm_threshold_row_current`, the column slices as [start, stop,
+step]), so that serve/export.py can export a step that scores through
+them; a call reaches the op only while torch.export traces it
+(`_launch.py::exporting`), and the op holds the same device rule.
 """
 
 from __future__ import annotations
@@ -28,7 +33,10 @@ import torch
 
 from gcm_tpu_torch.ops import _build
 from gcm_tpu_torch.ops.cuda._launch import (check_cuda, check_forward_only,
-                                            check_rc, ptr, stream_of)
+                                            check_op_device, check_rc,
+                                            exporting, ptr, stream_of)
+
+MODE_COSINE = "cosine"
 
 MODES = ("euclidean", "cosine")
 EPS = 1e-8
@@ -114,14 +122,14 @@ def _run(dev, curr, curr_sb, curr_sn, nodes, node_sb, node_sn, num_nodes, B,
                          f"{MAX_N} and 1 <= F <= {MAX_F}; got B={B} N={N} "
                          f"F={F}")
     check_cuda("num_nodes", num_nodes, (B,), dev, torch.int32)
-    out = torch.empty((B, N), device=dev, dtype=torch.uint8)
+    out = torch.empty((B, N), device=dev, dtype=torch.bool)  # 0 / 1 bytes
     rc = _lib().gcm_sddmm_threshold_row_f32(
         curr, curr_sb, curr_sn, nodes, node_sb, node_sn, ptr(num_nodes),
         _threshold(threshold), int(mode == "cosine"), ptr(out), B, N, F,
         dev.index, stream_of(dev))
     check_rc("sddmm_threshold_row", rc)
     sddmm_threshold_row.launches += 1
-    return out.view(torch.bool)
+    return out
 
 
 def _launch(curr, nodes, num_nodes, threshold, mode):
@@ -142,10 +150,29 @@ def sddmm_threshold_row(curr, nodes, num_nodes, threshold,
     the plain version."""
     _check_mode(mode)
     check_forward_only(curr, nodes)
+    check_op_device("sddmm_threshold_row", curr, nodes, num_nodes)
+    if exporting():
+        return _row_op(curr, nodes, num_nodes, _threshold(threshold),
+                       mode == MODE_COSINE)
+    return _row(curr, nodes, num_nodes, threshold, mode)
+
+
+def _row(curr, nodes, num_nodes, threshold, mode):
     if all(t.device.type == "cpu" for t in (curr, nodes, num_nodes)):
         return sddmm_threshold_row_plain(curr, nodes, num_nodes, threshold,
                                          mode)
     return _launch(curr, nodes, num_nodes, threshold, mode)
+
+
+@torch.library.custom_op("gcm::sddmm_threshold_row", mutates_args=())
+def _row_op(curr: torch.Tensor, nodes: torch.Tensor, num_nodes: torch.Tensor,
+            threshold: float, cosine: bool) -> torch.Tensor:
+    return _row(curr, nodes, num_nodes, threshold, MODES[int(cosine)])
+
+
+@_row_op.register_fake
+def _row_fake(curr, nodes, num_nodes, threshold, cosine):
+    return nodes.new_empty(nodes.shape[:2], dtype=torch.bool)
 
 
 sddmm_threshold_row.launches = 0  # kernel launches, for callers to read and reset
@@ -196,9 +223,39 @@ def sddmm_threshold_row_current(nodes, num_nodes, threshold,
     launch the kernel (or raise); CPU tensors take the plain version."""
     _check_mode(mode)
     check_forward_only(nodes)
+    check_op_device("sddmm_threshold_row", nodes, num_nodes)
     cols, curr_cols = _slices(cols, curr_cols)
+    if exporting():
+        F = nodes.shape[-1]
+        return _current_op(nodes, num_nodes, _threshold(threshold),
+                           mode == MODE_COSINE, _slice_ints(cols, F),
+                           _slice_ints(curr_cols, F))
+    return _current(nodes, num_nodes, threshold, mode, cols, curr_cols)
+
+
+def _current(nodes, num_nodes, threshold, mode, cols, curr_cols):
     if nodes.device.type == "cpu" and num_nodes.device.type == "cpu":
         return sddmm_threshold_row_current_plain(nodes, num_nodes, threshold,
                                                  mode, cols, curr_cols)
     return _launch_current(nodes, num_nodes, threshold, mode, cols,
                            curr_cols)
+
+
+def _slice_ints(sl: slice, F: int) -> list[int]:
+    """[start, stop, step] with slice(*those) selecting what `sl` selects
+    of F columns (a stop before column 0 as -F - 1, not -1)."""
+    start, stop, step = sl.indices(F)
+    return [start, stop if stop >= 0 else -F - 1, step]
+
+
+@torch.library.custom_op("gcm::sddmm_threshold_row_current", mutates_args=())
+def _current_op(nodes: torch.Tensor, num_nodes: torch.Tensor,
+                threshold: float, cosine: bool, cols: list[int],
+                curr_cols: list[int]) -> torch.Tensor:
+    return _current(nodes, num_nodes, threshold, MODES[int(cosine)],
+                    slice(*cols), slice(*curr_cols))
+
+
+@_current_op.register_fake
+def _current_fake(nodes, num_nodes, threshold, cosine, cols, curr_cols):
+    return nodes.new_empty(nodes.shape[:2], dtype=torch.bool)

@@ -30,9 +30,9 @@ import functools
 import torch
 
 from gcm_tpu_torch.ops import _build
-from gcm_tpu_torch.ops.cuda._launch import (check_cuda, check_forward_only,
-                                            check_rc, needs_grad, ptr,
-                                            stream_of)
+from gcm_tpu_torch.ops.cuda._launch import (
+    check_cuda, check_forward_only, check_rc, needs_grad, ptr, refuse_export,
+    stream_of)
 from gcm_tpu_torch.ops.cuda.edge_grad import edge_weight_grad
 from gcm_tpu_torch.ops.scatter import in_order_slots, in_order_sum
 
@@ -145,6 +145,7 @@ def spmm_edge_list(x, edges, weights, precision: str = "default"):
     sum; float32 is at least as exact as any of them.
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
+    refuse_export("spmm_edge_list")
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; one of "
                          f"{PRECISIONS}")
@@ -164,6 +165,7 @@ def spmm_onehot_dtype(x, edges, weights, dtype=torch.float32):
     the f32 sum, as the one-hot experiment's bf16 matmuls round. CUDA
     tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
+    refuse_export("spmm_onehot_dtype")
     bf16 = _is_bf16(dtype)
     check_forward_only(x, weights)
     if x.device.type == "cpu":

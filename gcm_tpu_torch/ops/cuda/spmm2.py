@@ -35,8 +35,8 @@ import functools
 import torch
 
 from gcm_tpu_torch.ops import _build
-from gcm_tpu_torch.ops.cuda._launch import (check_cuda, check_forward_only,
-                                            check_rc, ptr, stream_of)
+from gcm_tpu_torch.ops.cuda._launch import (
+    check_cuda, check_forward_only, check_rc, ptr, refuse_export, stream_of)
 from gcm_tpu_torch.ops.cuda.edge_grad import edge_weight_grad
 from gcm_tpu_torch.ops.scatter import (bucket_rank, edge_mask, in_order_slots,
                                       in_order_sum)
@@ -166,6 +166,7 @@ def spmm_pairs(x, bedges, bweights, num_nodes: int, cap: int,
     Differentiable in x and bweights. N = num_nodes and cap must be
     multiples of 128. CUDA tensors launch the kernel (or raise); CPU
     tensors take the plain version."""
+    refuse_export("spmm_pairs")
     if x.dim() != 3 or x.shape[1] != num_nodes:
         raise ValueError(f"x {tuple(x.shape)} must be [B, {num_nodes}, F]")
     return _SpmmPairs.apply(x, bedges, bweights, num_nodes, cap, precision)

@@ -28,8 +28,8 @@ import functools
 import torch
 
 from gcm_tpu_torch.ops import _build
-from gcm_tpu_torch.ops.cuda._launch import (check_cuda, check_forward_only,
-                                            check_rc, ptr, stream_of)
+from gcm_tpu_torch.ops.cuda._launch import (
+    check_cuda, check_forward_only, check_rc, ptr, refuse_export, stream_of)
 from gcm_tpu_torch.ops.scatter import in_order_slots, in_order_sum
 
 
@@ -104,6 +104,7 @@ def spmm_prefetch(x, edges, weights, num_nodes: int | None = None,
     """out[b, i] = sum over e with sink_e = i of w_e * x[b, src_e], through
     the sink-block buckets (lossless: K = E). x [B,N,F], edges [B,2,E],
     weights [B,E] -> [B,num_nodes,F]."""
+    refuse_export("spmm_prefetch")
     if num_nodes is None:
         num_nodes = x.shape[1]
     sl, src, w, _ = bucket_edges_sink_blocks(edges, weights, num_nodes,

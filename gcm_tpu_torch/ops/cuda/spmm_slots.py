@@ -32,8 +32,8 @@ import functools
 import torch
 
 from gcm_tpu_torch.ops import _build
-from gcm_tpu_torch.ops.cuda._launch import (check_cuda, check_rc, needs_grad,
-                                            ptr, stream_of)
+from gcm_tpu_torch.ops.cuda._launch import (
+    check_cuda, check_rc, needs_grad, ptr, refuse_export, stream_of)
 from gcm_tpu_torch.ops.cuda.edge_grad import edge_weight_grad
 from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
 from gcm_tpu_torch.ops.scatter import bucket_rank
@@ -142,6 +142,7 @@ def spmm_slots(x, srcs, ws, num_nodes: int, k: int):
     N = num_nodes must be a multiple of 128. Differentiable in x and ws.
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
+    refuse_export("spmm_slots")
     if x.shape[1] != num_nodes or num_nodes % W or num_nodes < W:
         raise ValueError(f"x has {x.shape[1]} nodes; the slot layout needs "
                          f"num_nodes={num_nodes}, a multiple of {W}")

@@ -27,8 +27,8 @@ import functools
 import torch
 
 from gcm_tpu_torch.ops import _build
-from gcm_tpu_torch.ops.cuda._launch import (check_cuda, check_forward_only,
-                                            check_rc, ptr, stream_of)
+from gcm_tpu_torch.ops.cuda._launch import (
+    check_cuda, check_forward_only, check_rc, ptr, refuse_export, stream_of)
 from gcm_tpu_torch.ops.cuda.spmm import _is_bf16, spmm_onehot_dtype_plain
 from gcm_tpu_torch.ops.scatter import bucket_rank, edge_mask
 
@@ -138,6 +138,7 @@ def spmm_win(x, bedges, bweights, num_nodes: int, cap: int,
     """x [B,N,F], bedges/bweights from `bucket_by_sink_window` at this cap
     -> [B,N,F] float32, forward only. CUDA tensors launch the kernel (or
     raise); CPU tensors take the plain version."""
+    refuse_export("spmm_win")
     bf16 = _is_bf16(dtype)
     check_layout(x, bedges, bweights, num_nodes, cap)
     check_forward_only(x, bweights)

@@ -8,10 +8,12 @@ the policy's optimizer and `update` changes the policy's parameters in
 place. Collection is an eager loop over `rollout_len` steps under
 torch.no_grad (JAX jits it as one lax.scan), every draw (the env's, the
 actions') from the torch.Generator handed to it. The replay for the loss is
-the policy's whole-trajectory call, whose gradients go through the port's
-kernels' autograd Functions: on the ring and dense cores fused_dense_gnn
-forward and fused_dense_gnn_bwd backward, on the sparse core
-spmm_edge_list.
+the policy's whole-trajectory call under train=True (a fast core's or the
+ring core's window() where its gates say so, else the core's scan with
+`train_remat_for`'s remat), whose gradients go through the port's
+kernels' autograd Functions: on the ring and dense cores' scans
+fused_dense_gnn forward and fused_dense_gnn_bwd backward, on the sparse
+core spmm_edge_list.
 
 max_grad_norm clips as optax.clip_by_global_norm does (g kept below the
 norm, else (g / norm) * max_norm), not as clip_grad_norm_ (g * max_norm /
@@ -126,7 +128,8 @@ class A2C:
         logits, values, _ = self.policy(
             obs, self.policy.initial_state(B),
             prev_actions=traj["prev_actions"], dones=replay_d,
-            remat=train_remat_for(getattr(self.policy, "core", None), T))
+            remat=train_remat_for(getattr(self.policy, "core", None), T,
+                                  dones=replay_d), train=True)
         return logits, values
 
     def loss(self, traj):

@@ -12,9 +12,11 @@ SparseEdgeChain's list), the aux selectors and positional encoders (`pe`,
 nothing is transposed. DenseGraphConv and GraphConv share one layout, so one
 tree loads into the README's dense and sparse models alike.
 
-The actor-critic policies' tree is {"core", "logit", "value"}; the nav
-policy's core is {"gnn": [...]} (NavDenseGNN's or NavPoseGNN's layers,
-{} for an activation), a NavRelPosConv {"msg1", "msg2", "lin_root"}.
+The actor-critic policies' tree is {"core", "logit", "value"}, the core's
+that of its ring, dense or fast core (banded, clique, banded_scored); the
+nav policy's core is {"gnn": [...]} (NavDenseGNN's or NavPoseGNN's
+layers, {} for an activation), a NavRelPosConv {"msg1", "msg2",
+"lin_root"}.
 `jax_param_tree(model)` is that layout with the port's parameters as its
 leaves, the one place that knows it: `named_from_jax(model, tree)` maps
 any tree of the layout (parameters, their gradients, Adam's moments) onto

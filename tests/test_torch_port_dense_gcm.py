@@ -11,8 +11,6 @@ with churn and LRU eviction. Tolerance 1e-5: both sides compute in float32
 and differ only in summation order.
 """
 
-import re
-
 import jax
 import numpy as np
 import pytest
@@ -32,7 +30,6 @@ from gcm_tpu_torch import (DenseGCM, DenseGNN, DenseGraphConv, SessionServer,
                            load_jax_params, readme_dense_gcm, reset_where,
                            sparse_initial_state, state_from_numpy,
                            state_to_numpy)
-from gcm_tpu_torch.models.dense_gcm import FAST_CORES
 from gcm_tpu_torch.utils.validation import ShapeError
 
 torch.set_num_threads(1)
@@ -272,24 +269,26 @@ def test_validate_raises_like_jax():
 
 
 def test_scan_refuses_reverse_and_unknown_remat():
-    """remat="reverse" is the JAX package's reversible scan, not yet in the
-    port: it raises, naming the roadmap item, with or without dones, and
-    never falls back to per-step checkpointing; any other non-bool remat
-    is refused. remat=True gives remat=False's beliefs."""
+    """remat="reverse" is the reversible scan (models/dense_reversible.py):
+    with dones it raises ValueError naming them and never falls back to
+    another scan; without, its beliefs are the scan's bitwise. Any other
+    non-bool remat is refused. remat=True gives remat=False's beliefs."""
     _, _, model = build_pair()
     xs, dones = inputs(seed=5)
     xs, dones = torch.from_numpy(xs), torch.from_numpy(dones)
     st = model.initial_state(B, OBS)
-    for d in (None, dones):
-        with pytest.raises(NotImplementedError, match=re.escape(FAST_CORES)):
-            model.scan(xs, st, dones=d, remat="reverse")
+    with pytest.raises(ValueError, match="dones=None"):
+        model.scan(xs, st, dones=dones, remat="reverse")
     for bad in ("per_step", 4, None):
         with pytest.raises(ValueError, match="remat"):
             model.scan(xs, st, remat=bad)
     with torch.no_grad():
         want, _ = model.scan(xs, st, dones=dones)
         got, _ = model.scan(xs, st, dones=dones, remat=True)
+        plain, _ = model.scan(xs, st)
+        rev, _ = model.scan(xs, st, remat="reverse")
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(rev, plain, rtol=0, atol=0)
 
 
 def test_state_round_trip_from_jax():

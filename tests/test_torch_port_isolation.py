@@ -14,6 +14,7 @@ import torch
 import gcm_tpu_torch as g
 from gcm_tpu_torch.benchmarks.spmm_variants import (probe_dynamic_gather,
                                                     run_sweep)
+from gcm_tpu_torch.train.resilient import train_resilient
 
 torch.set_num_threads(1)
 
@@ -31,7 +32,13 @@ def test_import_leaves_jax_out():
             "gcm_tpu_torch.nn.nav_conv, gcm_tpu_torch.models.banded_gcm, "
             "gcm_tpu_torch.models.clique_gcm, "
             "gcm_tpu_torch.models.ring_window, "
-            "gcm_tpu_torch.train.train_step; "
+            "gcm_tpu_torch.train.train_step, "
+            "gcm_tpu_torch.models.ring_reversible, "
+            "gcm_tpu_torch.models.dense_reversible, "
+            "gcm_tpu_torch.train.checkpoint, gcm_tpu_torch.train.resilient, "
+            "gcm_tpu_torch.serve.export, gcm_tpu_torch.utils.debug, "
+            "gcm_tpu_torch.utils.precision, gcm_tpu_torch.utils.roofline, "
+            "gcm_tpu_torch.utils.indexing, gcm_tpu_torch.utils.contracts; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'gcm_tpu' "
             "or m.startswith('gcm_tpu.')); print(bad)")
@@ -120,6 +127,13 @@ def _cpu_nav_gnn():
     lambda: g.BandedRingGCM(_cpu_gnn()),
     lambda: g.BandedScoredGCM(_cpu_gnn(), hops=(1,)),
     lambda: g.CliqueGCM(_cpu_gnn()),
+    lambda: g.GCMActorCritic(4, 2, 2, core="banded",
+                             edge_selectors=g.TemporalBackedge([1])),
+    lambda: g.GCMActorCritic(4, 2, 2, core="clique",
+                             edge_selectors=g.DenseEdge()),
+    lambda: g.GCMActorCritic(4, 2, 2, core="banded_scored",
+                             edge_selectors=g.EuclideanEdge(1.0, window=4)),
+    lambda: train_resilient(None, "unused", updates=1),
 ], ids=["readme_dense_gcm", "Linear", "DenseGraphConv", "DenseGCM",
         "SessionServer", "resolve_device", "readme_sparse_gcm", "GraphConv",
         "GCNConv", "SparseGCM", "LayerNorm", "LearnedEdge",
@@ -132,7 +146,8 @@ def _cpu_nav_gnn():
         "RecallEnv", "ContinuousRecallEnv", "NavGCM", "NavGCMIncremental",
         "nav_core", "NavRelPosConv", "NavActorCritic", "prefetch_to_device",
         "episode_batch_to_device", "BandedRingGCM", "BandedScoredGCM",
-        "CliqueGCM"])
+        "CliqueGCM", "GCMActorCritic_banded", "GCMActorCritic_clique",
+        "GCMActorCritic_banded_scored", "train_resilient"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")

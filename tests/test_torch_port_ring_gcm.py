@@ -315,8 +315,8 @@ def test_adj_dtype_bf16_is_bitwise_and_refuses_learned_temporal():
 def test_validate_remat_and_unported_options():
     """validate=True refuses a DenseGraphState and wrong shapes; the chunked
     (K = 4) and per-step remat give remat=False's forward bitwise and its
-    gradients; window() gives the scan's beliefs; remat='reverse' raises,
-    naming the queue item it waits for."""
+    gradients; window() gives the scan's beliefs; remat='reverse' gives
+    the scan's forward bitwise and its gradients, and refuses dones."""
     G, T = 8, 16
     _, _, model, _, _ = model_pair("learned", G, port_kw=dict(validate=True))
     state = model.initial_state(B, OBS)
@@ -352,8 +352,25 @@ def test_validate_remat_and_unported_options():
         want, _ = model.scan(xs, model.initial_state(B, OBS))
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL_SPARDMAX,
                                rtol=0)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        model.scan(xs, model.initial_state(B, OBS), remat="reverse")
+    # the reversible scan (models/ring_reversible.py): the forward bitwise,
+    # the gradients the scan's; dones are refused, not run another way
+    model.zero_grad(set_to_none=True)
+    out, _ = model.scan(xs, model.initial_state(B, OBS), remat="reverse")
+    (out ** 2).mean().backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    want, _ = model.scan(xs, model.initial_state(B, OBS))
+    (want ** 2).mean().backward()
+    np.testing.assert_array_equal(out.detach().numpy(),
+                                  want.detach().numpy())
+    for n, p in model.named_parameters():
+        if p.grad is not None:
+            np.testing.assert_allclose(grads[n].numpy(), p.grad.numpy(),
+                                       atol=1e-6, rtol=1e-5, err_msg=n)
+    with pytest.raises(ValueError, match="dones=None"):
+        model.scan(xs, model.initial_state(B, OBS), dones=dones,
+                   remat="reverse")
 
 
 def test_ring_matches_dense_core_but_not_a_windowed_distance():

@@ -353,7 +353,8 @@ def test_window_step_matches_optax(name):
 def test_trajectory_step_matches_optax(monkeypatch, branch):
     """The ring core's trajectory step: the training gate (the port's
     answer and JAX's constant set alike) picks the window, or the scan with
-    remat=True; both steps take the same branch."""
+    remat=True; both steps take the same branch. On the scan branch the
+    port's remat="reverse" step gives JAX's update too."""
     monkeypatch.setattr(RingDenseGCM, "window_profitable",
                         lambda self, mode="forward": branch == "window")
     monkeypatch.setattr(jax_config, "RING_WINDOW_TRAIN_MIN_N",
@@ -388,9 +389,15 @@ def test_trajectory_step_matches_optax(monkeypatch, branch):
             assert_close(p, want[name], f"{branch}: {name} vs JAX's step",
                          atol=GRAD_ATOL)
     if branch == "scan":
-        with pytest.raises(NotImplementedError, match="reverse"):
-            make_trajectory_supervised_step(model, torch.optim.Adam(
-                model.parameters()), remat="reverse")(t(xs), t(targets))
+        # the reversible backward (models/ring_reversible.py) from the same
+        # start takes JAX's remat=True step too
+        load_jax_params(model, numpy_tree(params))
+        make_trajectory_supervised_step(model, torch.optim.Adam(
+            model.parameters(), lr=LR), remat="reverse")(t(xs), t(targets))
+        for name, p in model.named_parameters():
+            if p.grad is not None and float(p.grad.abs().max()) >= ZERO_GRAD:
+                assert_close(p, want[name], f"reverse: {name} vs JAX's step",
+                             atol=GRAD_ATOL)
     # a core with no window takes the scan; a banded core its window
     dense = DenseGCM(stacks()[1], graph_size=N, device="cpu")
     assert not make_trajectory_supervised_step(

@@ -255,17 +255,23 @@ def policy_pair(core="ring", env=None, sparse=False, frozen=False, **cfg):
 
 
 def test_wrapper_config_validation_and_refusals():
-    """Unknown config keys raise in both frameworks; the cores and options
-    that wait for later queue items raise; slot_k is derived from the
-    selector."""
+    """Unknown config keys raise in both frameworks; a fast core given a
+    selector it does not implement raises ValueError, as JAX asserts, and
+    core="auto" resolves a temporal selector to "banded";
+    the options that wait for later queue items raise; slot_k is derived
+    from the selector."""
     with pytest.raises(ValueError, match="Invalid config key"):
         GCMActorCritic(4, 2, 2, device="cpu", bogus_key=1)
     with pytest.raises(AssertionError):
         JaxGCMActorCritic(4, 2, 2, bogus_key=1)
-    for core in ("auto", "banded", "clique", "banded_scored"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    for core, match in (("clique", "DenseEdge"), ("banded_scored",
+                                                  "Distance")):
+        with pytest.raises(ValueError, match=match):
             GCMActorCritic(4, 2, 2, core=core, device="cpu",
                            edge_selectors=TemporalBackedge([1]))
+    pol = GCMActorCritic(4, 2, 2, core="auto", device="cpu",
+                         edge_selectors=TemporalBackedge([1]))
+    assert pol.cfg["core"] == "banded"
     with pytest.raises(NotImplementedError, match="item 9"):
         SparseGCMActorCritic(4, 2, 2, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="dense core only"):
