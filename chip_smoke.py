@@ -168,7 +168,25 @@ Phases, one JSON line each:
    equal to the eager step; fused_dense_gnn and sddmm_threshold_row
    launched inside the loaded program, by their counts and the profiler;
    µs a tick eager and loaded); nan_guard on a NaN observation; the host
-   µs fused_dense_gnn's op adds to a call against its launcher, in turns.
+   µs fused_dense_gnn's op adds to a call against its launcher, in turns;
+21. parallel: gcm_tpu_torch/parallel/ on torch.distributed. (a) A world
+   of one over NCCL on this card (all_reduce, all_gather and all_to_all
+   of CUDA tensors checked): the dry run (parallel/dryrun.py, JAX's
+   __graft_entry__.py::dryrun_multichip section for section, each against
+   its unsharded counterpart), then at full width the README DenseGCM's
+   dp x tp train step (B = 32, T = 160, graph 128), examples/
+   train_sharded.py's sharded core (B = 8, obs 12, hidden 32, TemporalEdge
+   ([1, 2])) at N = 128, E = 512 over 8 windows of 16 and an Adam step,
+   and the README DenseGCM as a mesh SessionServer at capacity 256 (21
+   ticks and a snapshot restored into an unsharded server), each against
+   the unsharded port (beliefs 1e-5, gradients and parameters 1e-4). (b)
+   A world of two spawned ranks sharing the card over gloo: the sharded
+   core over 6 windows on its halo and psum paths, each ending in an Adam
+   step, the halo PartitionedSparseGNN's train step and a dp A2C update,
+   each against the unsharded port in this process; which collectives
+   gloo runs on CUDA tensors (parallel/comm.py stages the others through
+   host memory); the share of each rank's sharded-core wall time in
+   collectives. The ranks' launches are added to this process's counts.
 Phase 3 also holds spmm_edge_list and spmm_slots (bitwise: kernel and
 plain version add in the same order; slots also with sources outside their
 windows) against their plain versions beside one torch.sparse.mm call on a
@@ -217,7 +235,7 @@ tiles and splits at the sweep's point), beside one
 torch.sparse.sampled_addmm. The dense kernels and the stack backward also
 run at graph sizes off their 16-row grid (N = 5, 65, 100), which the
 wrappers pad and slice, each against its plain version at the unpadded N.
-Phases 4-20 each run with every launch count set to 0 just before and
+Phases 4-21 each run with every launch count set to 0 just before and
 read just after; each must launch the kernels of its path.
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero and prints no result.
@@ -4957,6 +4975,209 @@ def runtime_phase(card: str, seed: int = 0):
     emit("runtime", seconds=time.perf_counter() - t_phase, **row)
 
 
+# -- phase 21: parallelism on torch.distributed -------------------------------
+
+# examples/train_sharded.py's sharded core at the README sparse core's graph
+PAR_SPARSE = dict(B=8, obs=12, hidden=32, N=128, E=512, Tw=16)
+
+
+def parallel_data(seed: int, windows: int, part_T: int = 80) -> dict:
+    """The sharded-core windows [W, B, Tw, obs] and the last window's
+    targets; the halo PartitionedSparseGNN's one window of part_T steps
+    (rows past 64 cross the two ranks' boundary); the dp A2C batch."""
+    d = PAR_SPARSE
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    return dict(xs=normal(windows, d["B"], d["Tw"], d["obs"]),
+                targets=normal(d["B"], d["Tw"], d["hidden"], scale=0.1),
+                part_xs=normal(d["B"], part_T, d["obs"]),
+                part_targets=normal(d["B"], part_T, d["hidden"], scale=0.1),
+                N=d["N"], E=d["E"], obs=d["obs"], hidden=d["hidden"],
+                a2c_B=16)
+
+
+def sharded_close(label, got, want) -> dict:
+    """A sharded run (sparse_windows_and_step) against its replicated
+    twin's: every window's beliefs 1e-5, the loss, gradients and
+    parameters after the Adam step 1e-4, the edge count equal."""
+    from gcm_tpu_torch.parallel.dryrun import close
+
+    errs = dict(
+        beliefs=close(f"{label} beliefs", got["beliefs"], want["beliefs"],
+                      TOL_KERNEL),
+        loss=close(f"{label} loss", got["loss"], want["loss"], TOL_KERNEL),
+        grads=max(close(f"{label} grad {n}", got["grads"][n], g, TOL_MODEL)
+                  for n, g in want["grads"].items()),
+        params=max(close(f"{label} {n}", got["params"][n], p, TOL_MODEL)
+                   for n, p in want["params"].items()))
+    check(set(got["grads"]) == set(want["grads"]),
+          f"{label}: gradients of {sorted(got['grads'])}, want "
+          f"{sorted(want['grads'])}")
+    check(torch.equal(torch.as_tensor(got["num_edges"]).cpu(),
+                      torch.as_tensor(want["num_edges"]).cpu()),
+          f"{label}: edge counts differ")
+    return errs
+
+
+def mesh_server_readme(mesh, dev, seed, ticks=20, capacity=256) -> dict:
+    """The serve phase's README DenseGCM as a mesh SessionServer against
+    the unsharded server, ticks of tick_requests, then its snapshot
+    restored into an unsharded server (1e-5)."""
+    from gcm_tpu_torch import SessionServer, readme_dense_gcm
+    from gcm_tpu_torch.parallel.dryrun import close
+
+    model = readme_dense_gcm(obs_size=8, device=dev, seed=seed)
+    srv = SessionServer(model, capacity=capacity, obs_dim=8, mesh=mesh,
+                        device=dev)
+    ref = SessionServer(model, capacity=capacity, obs_dim=8, device=dev)
+    rng = np.random.default_rng(seed)
+    err = 0.0
+    for _ in range(ticks):
+        reqs = tick_requests(rng, capacity)
+        a, b = srv.step(reqs), ref.step(reqs)
+        err = max([err] + [close("mesh server", a[k], b[k], TOL_KERNEL)
+                           for k in reqs])
+    restored = SessionServer(model, capacity=capacity, obs_dim=8,
+                             device=dev)
+    restored.restore(srv.snapshot())
+    reqs = tick_requests(rng, capacity)
+    a, b = restored.step(reqs), ref.step(reqs)
+    err = max([err] + [close("mesh snapshot restored", a[k], b[k],
+                             TOL_KERNEL) for k in reqs])
+    return dict(ticks=ticks + 1, capacity=capacity, max_abs_err=err)
+
+
+def nccl_world_of_one(dev) -> dict:
+    """all_reduce, all_gather and all_to_all_single of CUDA tensors in the
+    world of one (the port's collectives skip a group of one rank)."""
+    import torch.distributed as dist
+
+    t = torch.arange(4.0, device=dev)
+    red = t.clone()
+    dist.all_reduce(red)
+    parts = [torch.empty_like(t)]
+    dist.all_gather(parts, t)
+    a2a = torch.empty_like(t)
+    dist.all_to_all_single(a2a, t)
+    for name, got in (("all_reduce", red), ("all_gather", parts[0]),
+                      ("all_to_all", a2a)):
+        check(torch.equal(got, t), f"NCCL {name} in a world of one")
+    return dict(backend=dist.get_backend(), collectives="ok")
+
+
+def parallel_phase(card: str, seed: int = 0, device_type: str = "cuda"):
+    """gcm_tpu_torch/parallel/ on the card. (a) A world of one over NCCL
+    on this card: the dry run (parallel/dryrun.py, every section against
+    its unsharded counterpart), then at full width the README DenseGCM's
+    dp x tp train step (B = 32, T = 160, graph 128), the sharded core of
+    examples/train_sharded.py at N = 128, E = 512 (8 windows of 16, then
+    an Adam step) against the replicated SparseGCM, and the README
+    DenseGCM as a mesh SessionServer at capacity 256 against the
+    unsharded one. (b) A world of two ranks sharing the card over gloo
+    (NCCL refuses two ranks on one card): the same sharded core over 6
+    windows (rows cross the ranks' boundary at 64) on the halo path
+    (TemporalEdge([1, 2])) and the psum path (an unwindowed deterministic
+    LearnedEdge), each ending in an Adam step, the halo
+    PartitionedSparseGNN's train step and a dp A2C update, each against
+    the unsharded port here; which collectives gloo runs on CUDA tensors;
+    each rank's share of the sharded core's wall time in collectives.
+    The ranks' kernel launches are added to this process's counts."""
+    from gcm_tpu_torch import A2C, RecallEnv, TemporalBackedge
+    from gcm_tpu_torch.ops.cuda.edge_grad import edge_weight_grad
+    from gcm_tpu_torch.ops.cuda.fused_gnn import (fused_dense_gnn,
+                                                  fused_dense_gnn_bwd)
+    from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
+    from gcm_tpu_torch.parallel import distributed as pdist
+    from gcm_tpu_torch.parallel import dryrun as pdry
+    from gcm_tpu_torch.parallel.mesh import make_mesh
+    from gcm_tpu_torch.train import make_sparse_supervised_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device_type)
+    d = PAR_SPARSE
+    row = dict(card=card)
+    t0 = time.perf_counter()
+    with pdist.world_of_one(device_type):
+        if device_type == "cuda":
+            row["world_of_one"] = nccl_world_of_one(dev)
+        mesh = make_mesh(dp=1, tp=1, device_type=device_type)
+        row["dryrun"] = pdry.dryrun_multichip(1, device_type, verbose=False)
+        row["dense_readme"] = pdry.dense_dp_tp(mesh, dev, obs=8, hidden=32,
+                                               graph=128, T=160, B=32,
+                                               seed=seed)
+        data = parallel_data(seed, windows=d["N"] // d["Tw"])
+        got = pdry.sparse_windows_and_step(
+            pdry.sharded_core("halo", mesh, data, dev), data, dev)
+        want = pdry.sparse_windows_and_step(
+            pdry.sharded_core("halo", None, data, dev), data, dev)
+        row["sharded_readme"] = sharded_close("sharded core, one rank", got,
+                                              want)
+        row["server"] = mesh_server_readme(mesh, dev, seed)
+    row["one_rank_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    data = parallel_data(seed + 1, windows=6)
+    ranks = pdist.spawn_world(pdry.sharded_cases_rank, 2, device_type,
+                              args=(device_type, data), backend="gloo",
+                              timeout_s=400)
+    row["two_ranks_s"] = time.perf_counter() - t0
+    gloo = ranks[0]["gloo_cuda"]
+    check(gloo["all_reduce"] == "ok" and gloo["broadcast"] == "ok",
+          f"gloo did not run all_reduce / broadcast on CUDA tensors: {gloo}")
+    row["gloo_cuda"] = gloo
+    two = {}
+    for case in ("halo", "psum"):
+        want = pdry.sparse_windows_and_step(
+            pdry.sharded_core(case, None, data, dev), data, dev)
+        two[case] = dict(
+            comm=list(ranks[0][case]["comm"]),
+            errs=[sharded_close(f"sharded core {case}, rank {r}",
+                                res[case], want)
+                  for r, res in enumerate(ranks)],
+            wall_s=[float(res[case]["wall_s"]) for res in ranks],
+            collective_s=[float(res[case]["collective_s"]) for res in ranks],
+            collectives=int(ranks[0][case]["collectives"]),
+            collective_share=[float(res[case]["collective_s"]
+                                    / res[case]["wall_s"]) for res in ranks])
+    check(two["halo"]["comm"][0] == "halo" and two["psum"]["comm"][0] ==
+          "psum", f"the cases took {two['halo']['comm']} / "
+          f"{two['psum']['comm']}")
+    part = pdry.partitioned_core(None, data, dev)
+    xs = torch.as_tensor(data["part_xs"], device=dev)
+    taus = torch.full((xs.shape[0],), xs.shape[1], dtype=torch.int32,
+                      device=dev)
+    loss = make_sparse_supervised_step(
+        part, torch.optim.Adam(part.parameters(), lr=1e-3))(
+        xs, torch.as_tensor(data["part_targets"], device=dev), taus)
+    two["partitioned"] = [dict(
+        loss=pdry.close("partitioned loss", res["partitioned"]["loss"], loss,
+                        TOL_KERNEL),
+        params=pdry.params_close("partitioned", res["partitioned"]["params"],
+                                 part)) for res in ranks]
+    env = RecallEnv(num_symbols=2, horizon=4, noise_dim=2, device=dev)
+    pol = pdry.recall_policy(env, dev, seed=7,
+                              edge_selectors=TemporalBackedge([1]))
+    m = A2C(env, pol).update(torch.Generator(device=dev).manual_seed(8),
+                             data["a2c_B"])
+    two["a2c"] = [dict(
+        loss=pdry.close("dp A2C loss", res["a2c"]["loss"], m["loss"],
+                        TOL_MODEL),
+        params=pdry.params_close("dp A2C", res["a2c"]["params"], pol))
+        for res in ranks]
+    row["two_ranks"] = two
+    wrappers = {fn.__name__: fn for fn in (fused_dense_gnn,
+                                           fused_dense_gnn_bwd,
+                                           spmm_edge_list, edge_weight_grad)}
+    row["rank_launches"] = [res["launches"] for res in ranks]
+    for res in ranks:
+        for k, n in res["launches"].items():
+            wrappers[k].launches += int(n)
+    emit("parallel", seconds=time.perf_counter() - t_phase, **row)
+
+
 KERNEL_META = {
     "fused_dense_gnn": dict(
         source="gcm_tpu_torch/csrc/dense_gnn.cu",
@@ -5137,6 +5358,8 @@ def main() -> int:
         (reverse_phase, ("fused_dense_gnn", "fused_dense_gnn_bwd")),
         (policy_phase, ("fused_dense_gnn", "fused_dense_gnn_bwd")),
         (runtime_phase, ("fused_dense_gnn", "sddmm_threshold_row")),
+        (parallel_phase, ("fused_dense_gnn", "fused_dense_gnn_bwd",
+                          "spmm_edge_list", "edge_weight_grad")),
     ]
     launches = dict.fromkeys(wrappers, 0)
     for phase, kernels in paths:

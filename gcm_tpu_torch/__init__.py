@@ -12,7 +12,10 @@ environments, and rl/nav.py trains a navigation policy over the NavGCM
 cores (models/nav_gcm.py, nn/nav_conv.py). The fast cores
 (models/banded_gcm.py, models/clique_gcm.py, models/ring_window.py)
 compute whole trajectories without a scan, and make_window_supervised_step
-/ make_trajectory_supervised_step train through them. Entry
+/ make_trajectory_supervised_step train through them. parallel/ runs
+the port on torch.distributed, one process a shard: dp x tp train steps,
+the partitioned and node-sharded sparse cores, the node-sharded fast-core
+scans, SessionServer(mesh=), A2C / PPO(dp_mesh=). Entry
 points run on the CUDA card unless given device="cpu", where every kernel
 takes its plain PyTorch version. This package imports neither JAX nor
 the gcm_tpu package.
@@ -65,6 +68,9 @@ from gcm_tpu_torch.ops.cuda.sddmm import (sddmm_threshold_row,
 from gcm_tpu_torch.ops.cuda.spmm import spmm_edge_list
 from gcm_tpu_torch.ops.cuda.spmm_slots import (bucket_sink_slots,
                                                check_slot_overflow, spmm_slots)
+from gcm_tpu_torch.parallel.edge_partition import PartitionedSparseGNN
+from gcm_tpu_torch.parallel.sharded_sparse import (ShardedSparseGCM,
+                                                   ShardedSparseState)
 from gcm_tpu_torch.rl.a2c import A2C, discounted_returns
 from gcm_tpu_torch.rl.distributions import Categorical, DiagGaussian
 from gcm_tpu_torch.rl.env import (CartPoleEnv, ContinuousRecallEnv,
@@ -108,9 +114,10 @@ __all__ = [
     "HostReplayBuffer", "LayerNorm", "LearnedEdge", "Linear", "MLP",
     "NativeCartPolePool", "NavActorCritic", "NavDenseGNN", "NavGCM",
     "NavGCMIncremental", "NavIncState", "NavPoseGNN", "NavRelPosConv",
-    "NavState", "PPO", "PointGoalNav", "PositionalEncoding", "PythonEnv",
+    "NavState", "PPO", "PartitionedSparseGNN", "PointGoalNav", "PositionalEncoding", "PythonEnv",
     "RecallEnv", "RelativePositionalEncoding", "RingDenseGCM",
-    "RingGraphState", "SessionServer", "SparseEdgeChain", "SparseGCM",
+    "RingGraphState", "SessionServer", "ShardedSparseGCM",
+    "ShardedSparseState", "SparseEdgeChain", "SparseGCM",
     "SparseGCMActorCritic", "SparseGNN", "SparseGraphState",
     "SparseLearnedEdge", "SpatialEdge", "SpatialKNNEdge", "SpatialRadiusEdge",
     "TMazeEnv", "TemporalBackedge", "TemporalEdge", "bucket_sink_slots",

@@ -18,15 +18,32 @@ core spmm_edge_list.
 max_grad_norm clips as optax.clip_by_global_norm does (g kept below the
 norm, else (g / norm) * max_norm), not as clip_grad_norm_ (g * max_norm /
 (norm + 1e-6)), so that a clipped update is JAX's.
+
+dp_mesh (a DeviceMesh, parallel/mesh.py) trains data-parallel over its
+axis dp_axis, one rank a block of B / d rows: every rank draws the whole
+batch's env and action noise from its generator (seeded alike on every
+rank), runs the policy on its own rows only and all-gathers the logits
+each step, so every rank collects the single-process trajectory and
+keeps its rows of it (JAX gets the same from GSPMD splitting one global
+draw). EuclideanEdge's batch-wide mean runs over every rank's rows
+(ops/distance.py::whole_batch). The replay and loss run on the rank's
+rows; the gradients are averaged over dp before clipping and the step
+(the global batch's mean loss, as GSPMD's all-reduce gives), and the
+metrics likewise.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from gcm_tpu_torch.core.graph_state import reset_where
+from gcm_tpu_torch.ops.distance import whole_batch
+from gcm_tpu_torch.parallel.comm import all_gather_data, all_reduce_
+from gcm_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
 from gcm_tpu_torch.rl.distributions import Categorical
-from gcm_tpu_torch.rl.wrappers import PARALLELISM, train_remat_for
+from gcm_tpu_torch.rl.wrappers import train_remat_for
 from gcm_tpu_torch.utils.debug import grad_norms
 
 
@@ -66,10 +83,11 @@ class A2C:
                  dp_axis: str = "dp", opt=None,
                  max_grad_norm: float | None = None, dist=None,
                  replay_dones: bool = True):
+        self.dp_group, self.dp, self.dp_rank = None, 1, 0
         if dp_mesh is not None:
-            raise NotImplementedError(f"dp_mesh= (data-parallel training) "
-                                      f"waits for {PARALLELISM}")
-        del dp_axis
+            self.dp_group = axis_group(dp_mesh, dp_axis)
+            self.dp = axis_size(dp_mesh, dp_axis)
+            self.dp_rank = axis_rank(dp_mesh, dp_axis)
         self.env = env
         self.policy = policy
         self.dist = dist if dist is not None else Categorical()
@@ -89,24 +107,60 @@ class A2C:
         self.log_grad_norms = log_grad_norms
         self.replay_dones = replay_dones
 
+    # -- data parallelism ------------------------------------------------
+    def _rows(self, B: int) -> slice:
+        """This rank's rows of a batch of B (all of them without dp)."""
+        if B % self.dp:
+            raise ValueError(f"batch {B} does not split over dp={self.dp}")
+        nb = B // self.dp
+        return slice(self.dp_rank * nb, (self.dp_rank + 1) * nb)
+
+    def _whole_batch(self):
+        """Batch-wide means (EuclideanEdge's) over every dp rank's rows."""
+        return (whole_batch(self.dp_group) if self.dp > 1
+                else contextlib.nullcontext())
+
+    def _own(self, traj: dict) -> dict:
+        rows = self._rows(traj["obs"].shape[0])
+        return {k: v[rows] for k, v in traj.items()}
+
+    def _dp_mean(self, tensors):
+        """The mean over dp of each tensor (in place; one all-reduce)."""
+        tensors = [t for t in tensors if t is not None]
+        if self.dp == 1 or not tensors:
+            return
+        flat = all_reduce_(torch.cat([t.reshape(-1) for t in tensors]),
+                           self.dp_group)
+        flat /= self.dp
+        at = 0
+        for t in tensors:
+            t.copy_(flat[at:at + t.numel()].view_as(t))
+            at += t.numel()
+
     # -- rollout (no gradients) ----------------------------------------------
     @torch.no_grad()
     def collect(self, generator: torch.Generator, B: int) -> dict:
         """Roll the policy for rollout_len steps from fresh episodes; the
         memory of an ended episode is wiped and its previous action reset.
         Returns {"obs", "actions", "rewards", "dones", "prev_actions"},
-        each [B, T, ...]."""
+        each [B, T, ...]: under dp_mesh the whole batch on every rank, the
+        policy run on the rank's rows."""
         obs, env_state = self.env.reset(generator, B)
-        mem = self.policy.initial_state(B)
+        rows = self._rows(B)
+        mem = self.policy.initial_state(rows.stop - rows.start)
         prev = self.dist.neutral_action(B, obs.device)
         steps = []
         for _ in range(self.rollout_len):
-            logits, _, mem = self.policy.step(obs, mem, prev_action=prev)
+            with self._whole_batch():
+                logits, _, mem = self.policy.step(obs[rows], mem,
+                                                  prev_action=prev[rows])
+            if self.dp > 1:
+                logits = all_gather_data(logits, self.dp_group, 0)
             action = self.dist.sample(generator, logits)
             nobs, reward, done, env_state = self.env.step(env_state, action,
                                                           generator)
             steps.append((obs, action, reward, done, prev))
-            mem = reset_where(mem, done)
+            mem = reset_where(mem, done[rows])
             prev = self.dist.reset_prev(action, done)
             obs = nobs
         keys = ("obs", "actions", "rewards", "dones", "prev_actions")
@@ -125,11 +179,12 @@ class A2C:
                 "replay_dones=False replays without episode ends, but an "
                 "episode ended before the rollout's last step: the replay "
                 "would not see what collection saw")
-        logits, values, _ = self.policy(
-            obs, self.policy.initial_state(B),
-            prev_actions=traj["prev_actions"], dones=replay_d,
-            remat=train_remat_for(getattr(self.policy, "core", None), T,
-                                  dones=replay_d), train=True)
+        with self._whole_batch():
+            logits, values, _ = self.policy(
+                obs, self.policy.initial_state(B),
+                prev_actions=traj["prev_actions"], dones=replay_d,
+                remat=train_remat_for(getattr(self.policy, "core", None), T,
+                                      dones=replay_d), train=True)
         return logits, values
 
     def loss(self, traj):
@@ -158,6 +213,7 @@ class A2C:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        self._dp_mean([p.grad for p in self.params])
         # the norms before clipping, as JAX logs them
         norms = grad_norms(self.policy) if self.log_grad_norms else {}
         if self.max_grad_norm is not None:
@@ -167,12 +223,15 @@ class A2C:
         return norms
 
     def update(self, generator: torch.Generator, B: int) -> dict:
-        """Collect one rollout and take one step on its loss; the metrics
-        stay tensors on the device."""
+        """Collect one rollout and take one step on its loss (under
+        dp_mesh on this rank's rows); the metrics stay tensors on the
+        device, the global batch's."""
         traj = self.collect(generator, B)
-        total, metrics = self.loss(traj)
+        total, metrics = self.loss(self._own(traj))
         metrics.update(self.apply(total))
         metrics["loss"] = total.detach()
+        self._dp_mean([metrics[k] for k in ("pg", "v", "entropy", "return",
+                                            "loss")])
         return metrics
 
     def train(self, generator: torch.Generator, updates: int, B: int = 16,

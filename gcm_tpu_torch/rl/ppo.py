@@ -7,12 +7,20 @@ initial state.
 `update` = `collect` + `learn(traj, perms)`, where perms are the epochs'
 batch permutations, drawn from the update's generator; a caller may hand
 `learn` permutations of its own (JAX's, in the CPU parity test).
+
+Under dp_mesh (see A2C) every rank holds the whole trajectory; the old
+log-probs and values are computed on the rank's rows and all-gathered,
+and each minibatch (consecutive slices of the permutation over the whole
+batch, as without dp) is split over dp: a rank replays its block of the
+minibatch's rows, normalising the advantages by the whole minibatch's
+mean and std, and the gradients are averaged over dp.
 """
 
 from __future__ import annotations
 
 import torch
 
+from gcm_tpu_torch.parallel.comm import all_gather_data
 from gcm_tpu_torch.rl.a2c import A2C
 
 
@@ -59,11 +67,15 @@ class PPO(A2C):
         return (self.dist.log_prob(logits, traj_mb["actions"]), values,
                 self.dist.entropy(logits))
 
-    def ppo_loss(self, traj_mb):
+    def ppo_loss(self, traj_mb, adv_all=None):
+        """adv_all: the whole minibatch's advantages, whose mean and std
+        normalise these rows' (default: these rows are the minibatch)."""
         logp, values, entropy = self._evaluate(traj_mb)
         ratio = torch.exp(logp - traj_mb["logp_old"])
         adv = traj_mb["adv"]
-        adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+        if adv_all is None:
+            adv_all = adv
+        adv = (adv - adv_all.mean()) / (adv_all.std(unbiased=False) + 1e-8)
         clipped = torch.clamp(ratio, 1 - self.clip_eps, 1 + self.clip_eps)
         pg_loss = -torch.mean(torch.minimum(ratio * adv, clipped * adv))
         v_loss = torch.mean((traj_mb["returns"] - values) ** 2)
@@ -80,7 +92,10 @@ class PPO(A2C):
         return and, if logged, the last minibatch's grad norms."""
         B = traj["obs"].shape[0]
         with torch.no_grad():
-            logp_old, values, _ = self._evaluate(traj)
+            logp_old, values, _ = self._evaluate(self._own(traj))
+            if self.dp > 1:
+                logp_old = all_gather_data(logp_old, self.dp_group, 0)
+                values = all_gather_data(values, self.dp_group, 0)
             adv, returns = gae(traj["rewards"], values, traj["dones"],
                                self.gamma, self.lam)
         traj = {**traj, "logp_old": logp_old, "adv": adv, "returns": returns}
@@ -90,10 +105,14 @@ class PPO(A2C):
             perm = torch.as_tensor(perms[e], device=traj["obs"].device)
             for i in range(self.num_minibatches):
                 idx = perm[i * mb:(i + 1) * mb].long()
-                total, _ = self.ppo_loss({k: v[idx] for k, v in traj.items()})
+                own = idx[self._rows(mb)]
+                total, _ = self.ppo_loss({k: v[own] for k, v in traj.items()},
+                                         adv_all=traj["adv"][idx])
                 norms = self.apply(total)
                 losses.append(total.detach())
-        return {"loss": torch.stack(losses).mean(),
+        loss = torch.stack(losses).mean()
+        self._dp_mean([loss])
+        return {"loss": loss,
                 "return": torch.mean(torch.sum(traj["rewards"], dim=1)),
                 **norms}
 

@@ -11,8 +11,9 @@ TemporalBackedge), "clique" (CliqueGCM, DenseEdge) or "banded_scored"
 hops); "auto" picks among them by the selector's structure, as JAX's rule
 does: each family's fast core beat "dense" in an RL update on the card
 (chip_smoke.py's policy line). `SparseGCMActorCritic` runs
-SparseGCM over a whole window in one call; mesh= (the sharded sparse core)
-is ROADMAP Queue 1 item 9 and raises until then.
+SparseGCM over a whole window in one call, or with mesh= the node-sharded
+core (parallel/sharded_sparse.py::ShardedSparseGCM) over the mesh axis
+mesh_axis, in its plain selector configuration only, as JAX's.
 
 The whole-trajectory call takes the core's scan-free `window()` where the
 core has one, no noise or generator is given, its direction is forward,
@@ -50,8 +51,7 @@ from gcm_tpu_torch.nn.dense_conv import (DenseGNN, DenseGraphConv,
                                          plan_conv_stack)
 from gcm_tpu_torch.nn.module import MLP, Linear
 from gcm_tpu_torch.nn.sparse_conv import GraphConv, SparseGNN
-
-PARALLELISM = "ROADMAP Queue 1 item 9 (parallelism)"
+from gcm_tpu_torch.parallel.sharded_sparse import ShardedSparseGCM
 
 DENSE_DEFAULT_CONFIG = {
     # "ring" (RingDenseGCM, the default), "dense" (DenseGCM), "banded"
@@ -82,7 +82,7 @@ DENSE_DEFAULT_CONFIG = {
 
 SPARSE_DEFAULT_CONFIG = {
     **DENSE_DEFAULT_CONFIG,
-    "mesh": None,  # the sharded sparse core: waits for parallelism
+    "mesh": None,  # a DeviceMesh: the node-sharded sparse core
     "mesh_axis": "dp",
     "max_edges": 512,
     "max_hops": None,
@@ -421,8 +421,21 @@ class SparseGCMActorCritic(GCMActorCritic):
     def _build_core(self, generator):
         cfg = self.cfg
         if cfg["mesh"] is not None:
-            raise NotImplementedError(f"mesh= (the sharded sparse core) "
-                                      f"waits for {PARALLELISM}")
+            if (cfg["aux_edge_selectors"] or cfg["positional_encoding"]
+                    or cfg["max_hops"] or cfg["pooled"] or cfg["edge_weights"]
+                    or cfg["aggregation"] == "slots"):
+                raise ValueError(
+                    "mesh= (the node-sharded core) supports only the plain "
+                    "selector configuration: no aux selectors, positional "
+                    "encoding, max_hops, pooling, edge weights or slots")
+            return ShardedSparseGCM(
+                self._gnn(generator).layers, cfg["mesh"],
+                axis=cfg["mesh_axis"],
+                preprocessor=_build_preprocessor(self.input_dim, cfg,
+                                                 self.device, generator),
+                edge_selectors=cfg["edge_selectors"],
+                graph_size=cfg["graph_size"], max_edges=cfg["max_edges"],
+                device=self.device)
         slot_k = cfg["slot_k"]
         if cfg["aggregation"] == "slots" and slot_k is None:
             # aux selectors add edges to the same sinks, so a bound from

@@ -12,6 +12,17 @@
 
 The pool never changes shape, so every tick costs the same whatever the
 number of live sessions.
+
+With `mesh=` the pool's rows are split over the mesh axis `axis` (one
+rank a block of capacity / d rows), so the live sessions' memory grows
+with the number of cards: every rank runs the same bookkeeping on the
+same requests, steps its own rows and one all_gather of the stepped rows
+gives every rank the same reply. Sessions interact only through a
+batch-wide mean (EuclideanEdge's, over the whole pool), which gathers the
+pool's current nodes (ops/distance.py::whole_batch); otherwise the step
+needs no collective. `snapshot` gathers the whole pool, and `restore`
+takes this rank's rows of one, so snapshots cross between mesh and
+unsharded servers.
 """
 
 from __future__ import annotations
@@ -23,6 +34,9 @@ import torch
 
 from gcm_tpu_torch.core.graph_state import reset_where
 from gcm_tpu_torch.device import resolve_device
+from gcm_tpu_torch.ops.distance import whole_batch
+from gcm_tpu_torch.parallel.comm import all_gather_data
+from gcm_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
 
 
 def _tree_map(fn, tree):
@@ -41,20 +55,34 @@ def _tree_map(fn, tree):
 
 class SessionServer:
     def __init__(self, model, capacity: int, obs_dim: int,
-                 dtype=torch.float32, step_fn=None, initial_state=None, *,
-                 device=None):
+                 dtype=torch.float32, step_fn=None, initial_state=None,
+                 mesh=None, axis: str = "dp", *, device=None):
         """`model(obs, state) -> (belief, state)` backs the server;
         alternatively pass step_fn(obs, state) -> (belief, state) with a
         matching capacity-sized `initial_state` and model=None (see
-        `from_step`). Runs on `device` (default: the CUDA card)."""
+        `from_step`). Runs on `device` (default: the CUDA card). mesh: a
+        DeviceMesh whose axis `axis` splits the pool's rows (its size must
+        divide capacity; see the module docstring)."""
         self.device = resolve_device(device)
         self.model = model
         self.capacity = capacity
         self.obs_dim = obs_dim
+        self._group = None
+        self._rows = slice(0, capacity)
+        if mesh is not None:
+            d = axis_size(mesh, axis)
+            if capacity % d:
+                raise ValueError(f"mesh axis '{axis}' of size {d} must "
+                                 f"divide capacity {capacity}")
+            r, nb = axis_rank(mesh, axis), capacity // d
+            self._group = axis_group(mesh, axis)
+            self._rows = slice(r * nb, (r + 1) * nb)
+        self._pool = self._rows.stop - self._rows.start
         if initial_state is not None:
-            self.state = _tree_map(lambda t: t.to(self.device), initial_state)
+            self.state = _tree_map(lambda t: self._own_rows(t).to(
+                self.device), initial_state)
         else:
-            self.state = model.initial_state(capacity, obs_dim, dtype=dtype)
+            self.state = model.initial_state(self._pool, obs_dim, dtype=dtype)
         self._model_step = step_fn if step_fn is not None else model
         self._row_of: dict = {}          # session_id -> row
         self._free = list(range(capacity - 1, -1, -1))  # pop() -> row 0 first
@@ -64,7 +92,8 @@ class SessionServer:
                           "evictions": 0}
 
     @classmethod
-    def from_policy(cls, policy, capacity: int, *, device=None):
+    def from_policy(cls, policy, capacity: int, mesh=None, axis: str = "dp",
+                    *, device=None):
         """Serve a whole actor-critic policy (rl/wrappers.py): each tick
         returns {"logits": [A], "value": scalar} per session. The policy
         must not use the previous action (requests carry none). Runs on
@@ -79,7 +108,8 @@ class SessionServer:
             return {"logits": logits, "value": value}, state
 
         return cls(None, capacity, policy.obs_dim, step_fn=step_fn,
-                   initial_state=policy.initial_state(capacity),
+                   initial_state=policy.initial_state(capacity), mesh=mesh,
+                   axis=axis,
                    device=policy.device if device is None else device)
 
     @classmethod
@@ -90,21 +120,36 @@ class SessionServer:
         return cls(None, capacity, obs_dim, step_fn=step_fn,
                    initial_state=initial_state, device=device)
 
+    def _own_rows(self, t):
+        """This rank's rows of a capacity-leading tensor (all of them
+        without a mesh); other tensors whole."""
+        if t.dim() == 0 or t.shape[0] != self.capacity:
+            return t
+        return t[self._rows]
+
+    def _all_rows(self, t):
+        """The whole pool's rows from every rank's (a mesh server)."""
+        if self._group is None or t.dim() == 0 or t.shape[0] != self._pool:
+            return t
+        return all_gather_data(t, self._group, 0)
+
     @torch.no_grad()
     def _step(self, obs, active):
-        beliefs, new_state = self._model_step(obs, self.state)
+        obs, active = obs[self._rows], active[self._rows]
+        with whole_batch(self._group):
+            beliefs, new_state = self._model_step(obs, self.state)
 
         def merge(n, o):
             # leaves without a per-session leading axis (the size-0
             # placeholder weights) pass through unchanged, as in reset_where
-            if n.dim() == 0 or n.shape[0] != self.capacity:
+            if n.dim() == 0 or n.shape[0] != self._pool:
                 return n
             m = active.reshape((-1,) + (1,) * (n.dim() - 1))
             return torch.where(m, n, o)
 
         self.state = type(new_state)(
             *(merge(n, o) for n, o in zip(new_state, self.state)))
-        return beliefs
+        return _tree_map(self._all_rows, beliefs)
 
     # -- row management ------------------------------------------------------
     def _allocate(self, sid):
@@ -147,7 +192,8 @@ class SessionServer:
         server built the same way continues every session bit-exactly after
         `restore`."""
         return {
-            "state": _tree_map(lambda t: t.cpu().numpy(), self.state),
+            "state": _tree_map(lambda t: self._all_rows(t).cpu().numpy(),
+                               self.state),
             "row_of": dict(self._row_of),
             "last_used": dict(self._last_used),
             "free": list(self._free),
@@ -155,9 +201,10 @@ class SessionServer:
         }
 
     def restore(self, snap: dict) -> None:
-        """Adopt a snapshot() of another server built the same way."""
-        state = _tree_map(lambda a: torch.as_tensor(a, device=self.device),
-                          snap["state"])
+        """Adopt a snapshot() of another server built the same way, with
+        or without a mesh."""
+        state = _tree_map(lambda a: self._own_rows(
+            torch.as_tensor(a, device=self.device)), snap["state"])
         if type(state) is not type(self.state) or any(
                 a.shape != b.shape for a, b in zip(state, self.state)):
             raise ValueError("snapshot state does not match this server's "
@@ -196,8 +243,8 @@ class SessionServer:
             # fresh memory for every newly allocated row, in one masked call
             mask = np.zeros((self.capacity,), bool)
             mask[new_rows] = True
-            self.state = reset_where(self.state,
-                                     torch.as_tensor(mask, device=self.device))
+            self.state = reset_where(self.state, torch.as_tensor(
+                mask[self._rows], device=self.device))
 
         obs = np.zeros((self.capacity, self.obs_dim), np.float32)
         active = np.zeros((self.capacity,), bool)

@@ -12,6 +12,13 @@ On the card the gradients go through the port's autograd Functions, whose
 backwards are CUDA kernels: the dense stack's (csrc/dense_gnn_bwd.cu),
 spmm_edge_list on flipped edges and, where edge weights carry a gradient,
 the edge weight-gradient (csrc/edge_grad.cu).
+
+Under a mesh the model is a `parallel/sharding.py::TensorParallel` (dp x
+tp; each rank passes its dp block of the batch) or a core that shards
+itself (`parallel/sharded_sparse.py::ShardedSparseGCM`, the inputs
+replicated): the step calls the model's `sync_grads` after the backward
+(the gradients averaged over dp) and returns its `reduce_loss`, the
+global batch's loss, as JAX's step under GSPMD does.
 """
 
 from __future__ import annotations
@@ -19,12 +26,16 @@ from __future__ import annotations
 import torch
 
 
-def _apply(opt, loss_fn):
+def _apply(opt, loss_fn, model):
     opt.zero_grad(set_to_none=True)
     loss = loss_fn()
     loss.backward()
+    sync = getattr(model, "sync_grads", None)
+    if sync is not None:
+        sync()
     opt.step()
-    return loss.detach()
+    reduce = getattr(model, "reduce_loss", None)
+    return loss.detach() if reduce is None else reduce(loss.detach())
 
 
 def make_dense_supervised_step(model, opt):
@@ -38,7 +49,7 @@ def make_dense_supervised_step(model, opt):
             outs, _ = model.scan(xs, state)
             return torch.mean((outs - targets) ** 2)
 
-        return _apply(opt, loss_fn)
+        return _apply(opt, loss_fn, model)
 
     return step
 
@@ -57,7 +68,7 @@ def make_window_supervised_step(model, opt, **window_kwargs):
             outs, _ = model.window(xs, state, dones=dones, **window_kwargs)
             return torch.mean((outs - targets) ** 2)
 
-        return _apply(opt, loss_fn)
+        return _apply(opt, loss_fn, model)
 
     return step
 
@@ -86,7 +97,7 @@ def make_trajectory_supervised_step(model, opt, unroll=None, remat=False):
                 outs, _ = model.scan(xs, state, unroll=unroll, remat=remat)
             return torch.mean((outs - targets) ** 2)
 
-        return _apply(opt, loss_fn)
+        return _apply(opt, loss_fn, model)
 
     step.use_window = use_window
     return step
@@ -103,6 +114,6 @@ def make_sparse_supervised_step(model, opt):
             outs, _ = model(xs, taus, state)
             return torch.mean((outs - targets) ** 2)
 
-        return _apply(opt, loss_fn)
+        return _apply(opt, loss_fn, model)
 
     return step

@@ -10,7 +10,9 @@ LearnedEdge's `edge_network` and `tau`, an EdgeChain's or a
 SparseEdgeChain's list), the aux selectors and positional encoders (`pe`,
 `reproject`). Both sides store linear kernels [in, out], so
 nothing is transposed. DenseGraphConv and GraphConv share one layout, so one
-tree loads into the README's dense and sparse models alike.
+tree loads into the README's dense and sparse models alike, and the
+sharded ones (parallel/: PartitionedSparseGNN's tree is SparseGNN's,
+ShardedSparseGCM's SparseGCM's) take the unsharded trees.
 
 The actor-critic policies' tree is {"core", "logit", "value"}, the core's
 that of its ring, dense or fast core (banded, clique, banded_scored); the
@@ -66,6 +68,8 @@ from gcm_tpu_torch.nn.dense_conv import (DenseGCNConv, DenseGNN,
 from gcm_tpu_torch.nn.module import MLP, LayerNorm, Linear
 from gcm_tpu_torch.nn.nav_conv import NavPoseGNN, NavRelPosConv
 from gcm_tpu_torch.nn.sparse_conv import GCNConv, GraphConv, SparseGNN
+from gcm_tpu_torch.parallel.edge_partition import PartitionedSparseGNN
+from gcm_tpu_torch.parallel.sharded_sparse import ShardedSparseGCM
 from gcm_tpu_torch.rl.nav import NavActorCritic
 from gcm_tpu_torch.rl.wrappers import GCMActorCritic, _FrozenMLP
 
@@ -112,11 +116,12 @@ def jax_param_tree(module):
         return {"lin_rel": jax_param_tree(module.lin_rel),
                 "lin_root": jax_param_tree(module.lin_root)}
     if isinstance(module, (DenseGNN, SparseGNN, MLP, NavDenseGNN,
-                           NavPoseGNN)):
+                           NavPoseGNN, PartitionedSparseGNN)):
         return [jax_param_tree(m) if isinstance(m, torch.nn.Module) else {}
                 for m in module.layers]
     if isinstance(module, (DenseGCM, SparseGCM, RingDenseGCM,
-                           BandedRingGCM, BandedScoredGCM, CliqueGCM)):
+                           BandedRingGCM, BandedScoredGCM, CliqueGCM,
+                           ShardedSparseGCM)):
         out = {"gnn": jax_param_tree(module.gnn)}
         for name in ("preprocessor", "edge_selectors", "aux_edge_selectors",
                      "positional_encoder", "distance"):

@@ -14,6 +14,9 @@ import torch
 import gcm_tpu_torch as g
 from gcm_tpu_torch.benchmarks.spmm_variants import (probe_dynamic_gather,
                                                     run_sweep)
+from gcm_tpu_torch.parallel import distributed as pdist
+from gcm_tpu_torch.parallel.dryrun import dryrun_multichip
+from gcm_tpu_torch.parallel.mesh import make_mesh
 from gcm_tpu_torch.train.resilient import train_resilient
 
 torch.set_num_threads(1)
@@ -38,7 +41,14 @@ def test_import_leaves_jax_out():
             "gcm_tpu_torch.train.checkpoint, gcm_tpu_torch.train.resilient, "
             "gcm_tpu_torch.serve.export, gcm_tpu_torch.utils.debug, "
             "gcm_tpu_torch.utils.precision, gcm_tpu_torch.utils.roofline, "
-            "gcm_tpu_torch.utils.indexing, gcm_tpu_torch.utils.contracts; "
+            "gcm_tpu_torch.utils.indexing, gcm_tpu_torch.utils.contracts, "
+            "gcm_tpu_torch.parallel.mesh, gcm_tpu_torch.parallel.comm, "
+            "gcm_tpu_torch.parallel.distributed, "
+            "gcm_tpu_torch.parallel.sharding, "
+            "gcm_tpu_torch.parallel.edge_partition, "
+            "gcm_tpu_torch.parallel.sharded_sparse, "
+            "gcm_tpu_torch.parallel.banded_partition, "
+            "gcm_tpu_torch.parallel.dryrun, gcm_tpu_torch.parallel.cases; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'gcm_tpu' "
             "or m.startswith('gcm_tpu.')); print(bad)")
@@ -159,3 +169,39 @@ def test_cpu_server_runs_when_asked():
     srv = g.SessionServer(_cpu_model(), capacity=2, obs_dim=8, device="cpu")
     out = srv.step({"a": np.ones(8, np.float32)})
     assert out["a"].shape == (32,) and np.isfinite(out["a"]).all()
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: make_mesh(),
+    lambda: pdist.global_mesh(),
+    lambda: pdist.initialize_multihost("localhost:1", 1, 0),
+    lambda: pdist.spawn_world(print, 1),
+    lambda: pdist.world_of_one().__enter__(),
+    lambda: dryrun_multichip(1),
+    lambda: g.SessionServer(_cpu_model(), capacity=2, obs_dim=8,
+                            mesh=object()),
+], ids=["make_mesh", "global_mesh", "initialize_multihost", "spawn_world",
+        "world_of_one", "dryrun_multichip", "SessionServer_mesh"])
+def test_parallel_entry_points_default_to_cuda(entry):
+    """The parallel entry points take the card by default and raise
+    without one, before any process group or process exists."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default resolves to it")
+    with pytest.raises(RuntimeError, match="='cpu'"):
+        entry()
+    assert not torch.distributed.is_initialized()
+
+
+def test_parallel_runs_on_the_cpu_when_asked():
+    """A CPU world of one: the mesh, a mesh SessionServer and the whole
+    dry run."""
+    with pdist.world_of_one("cpu"):
+        mesh = make_mesh(device_type="cpu")
+        assert tuple(mesh.shape) == (1, 1)
+        srv = g.SessionServer(_cpu_model(), capacity=2, obs_dim=8,
+                              mesh=mesh, device="cpu")
+        out = srv.step({"a": np.ones(8, np.float32)})
+        assert out["a"].shape == (32,) and np.isfinite(out["a"]).all()
+        res = dryrun_multichip(1, device_type="cpu", verbose=False)
+        assert res["e2e_sharded_sparse"]["grad_err"] <= 1e-4
+    assert not torch.distributed.is_initialized()

@@ -14,10 +14,10 @@ samplers and env draws are held to their laws instead.
   ContinuousRecall stepped from JAX's states under the same actions:
   rewards, dones and the deterministic parts of states and observations
   equal (CartPole's dynamics within 1e-6); the draws' ranges and laws.
-- The wrappers: config validation, the cores waiting for later queue items
-  raise, step == __call__, previous-action one-hots and positional
-  encodings ('add' and 'cat' on the ring, 'relative' on the dense core)
-  against JAX's policies at 1e-5.
+- The wrappers: config validation, mesh= building the node-sharded core,
+  step == __call__, previous-action one-hots and positional encodings
+  ('add' and 'cat' on the ring, 'relative' on the dense core) against
+  JAX's policies at 1e-5.
 - discounted_returns and gae against JAX at 1e-6.
 - A2C's loss, metrics and every gradient against jax.value_and_grad of
   JAX's loss on a JAX-collected trajectory, for the ring (graph size 5,
@@ -66,6 +66,9 @@ from gcm_tpu_torch import (A2C, MLP, PPO, CartPoleEnv, Categorical,
                            SparseGCMActorCritic, TemporalBackedge,
                            TemporalEdge, TMazeEnv, discounted_returns, gae,
                            load_jax_params, named_from_jax, reset_where)
+from gcm_tpu_torch.parallel.distributed import world_of_one
+from gcm_tpu_torch.parallel.mesh import make_mesh
+from gcm_tpu_torch.parallel.sharded_sparse import ShardedSparseGCM
 from gcm_tpu_torch.rl import env as tenv
 
 torch.set_num_threads(1)
@@ -258,8 +261,8 @@ def test_wrapper_config_validation_and_refusals():
     """Unknown config keys raise in both frameworks; a fast core given a
     selector it does not implement raises ValueError, as JAX asserts, and
     core="auto" resolves a temporal selector to "banded";
-    the options that wait for later queue items raise; slot_k is derived
-    from the selector."""
+    mesh= builds the node-sharded core (plain selectors only); slot_k is
+    derived from the selector."""
     with pytest.raises(ValueError, match="Invalid config key"):
         GCMActorCritic(4, 2, 2, device="cpu", bogus_key=1)
     with pytest.raises(AssertionError):
@@ -272,8 +275,15 @@ def test_wrapper_config_validation_and_refusals():
     pol = GCMActorCritic(4, 2, 2, core="auto", device="cpu",
                          edge_selectors=TemporalBackedge([1]))
     assert pol.cfg["core"] == "banded"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SparseGCMActorCritic(4, 2, 2, mesh=object(), device="cpu")
+    with world_of_one("cpu"):  # mesh= builds the node-sharded core
+        mesh = make_mesh(device_type="cpu")
+        pol = SparseGCMActorCritic(4, 2, 2, mesh=mesh, device="cpu",
+                                   graph_size=16, max_edges=64,
+                                   edge_selectors=TemporalEdge([1]))
+        assert isinstance(pol.core, ShardedSparseGCM)
+        with pytest.raises(ValueError, match="plain selector"):
+            SparseGCMActorCritic(4, 2, 2, mesh=mesh, device="cpu",
+                                 max_hops=2, edge_selectors=TemporalEdge([1]))
     with pytest.raises(ValueError, match="dense core only"):
         GCMActorCritic(4, 2, 2, positional_encoding="relative",
                        device="cpu")
@@ -457,8 +467,12 @@ def test_replay_dones_false_is_checked():
     traj["dones"][0, 1] = True
     with pytest.raises(ValueError, match="replay_dones=False"):
         A2C(pv, pol, replay_dones=False).loss(traj)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        A2C(pv, pol, dp_mesh=object())
+    with world_of_one("cpu"):  # dp_mesh= builds; a world of one is dp 1
+        tr = A2C(pv, pol, dp_mesh=make_mesh(device_type="cpu"))
+        assert tr.dp == 1
+        traj["dones"][0, 1] = False
+        with torch.no_grad():
+            assert_close(tr.loss(tr._own(traj))[0], a.numpy(), atol=1e-6)
 
 
 def test_from_policy_matches_jax_server():
