@@ -26,6 +26,7 @@ from gcm_tpu_torch.device import resolve_device
 from gcm_tpu_torch.ops.cuda.sddmm import (current_node,
                                           sddmm_threshold_row_current)
 from gcm_tpu_torch.ops.distance import euclidean_score
+from gcm_tpu_torch.parallel import comm
 
 
 class Distance(nn.Module):
@@ -81,18 +82,33 @@ class Distance(nn.Module):
 class EuclideanEdge(Distance):
     """Euclidean distance with the reference's batch-mean broadcast
     (ops/distance.py::euclidean_score), in plain PyTorch: the kernel's
-    per-batch distance is another function whenever B > 1."""
+    per-batch distance is another function whenever B > 1.
+
+    The mean runs over the whole batch. Under data parallelism a rank
+    holds only its rows, and `batch_group` (a comm.GroupRef, bound by
+    parallel/mesh.py::bind_batch; None in one process) names the ranks
+    whose rows make up the batch: `batch_rows` all-gathers the current
+    nodes over them. The cores that score with this selector (the dense,
+    ring and banded cores) call it too."""
 
     def __init__(self, max_distance: float, learned: bool = False,
                  window: int | None = None, *, device=None):
         super().__init__(max_distance, learned=learned, window=window,
                          device=device)
+        self.batch_group = None
+
+    def batch_rows(self, curr):
+        """curr [B, ...] with every rank's rows of the batch [d * B, ...]
+        in rank order (curr itself in one process)."""
+        if self.batch_group is None:
+            return curr
+        return comm.all_gather(curr, self.batch_group.group, 0)
 
     def edge_mask(self, nodes, num_nodes):
         past = torch.arange(nodes.shape[1], device=nodes.device)[None, :] \
             < num_nodes[:, None]
-        return (euclidean_score(current_node(nodes, num_nodes), nodes)
-                < self.max_distance) & past
+        curr = self.batch_rows(current_node(nodes, num_nodes))
+        return (euclidean_score(curr, nodes) < self.max_distance) & past
 
 
 class CosineEdge(Distance):

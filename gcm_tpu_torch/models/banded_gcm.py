@@ -354,7 +354,7 @@ def distance_scores(sel, curr, nodes):
     [B, W, F] -> [B, W] (JAX's `dist_fn`): EuclideanEdge's cross-batch
     mean, cosine similarity, the pose slices' distance."""
     if isinstance(sel, EuclideanEdge):
-        return euclidean_score(curr, nodes)
+        return euclidean_score(sel.batch_rows(curr), nodes)
     if isinstance(sel, CosineEdge):
         return cosine_score(curr, nodes)
     if isinstance(sel, SpatialEdge):
@@ -371,7 +371,7 @@ def distance_scores_per_step(sel, curr, nodes):
     takes it, never over B * T."""
     B, T, F = curr.shape
     if isinstance(sel, EuclideanEdge):
-        return euclidean_score_per_step(curr, nodes)
+        return euclidean_score_per_step(sel.batch_rows(curr), nodes)
     if nodes.dim() == 3:
         nodes = nodes[:, None].expand(B, T, -1, -1)
     W = nodes.shape[2]

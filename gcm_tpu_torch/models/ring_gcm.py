@@ -241,7 +241,8 @@ class RingDenseGCM(nn.Module):
                 scored[:, :, sel.b_pose_slice].contiguous(), every,
                 sel.max_distance, "euclidean")
         if isinstance(sel, EuclideanEdge):
-            return euclidean_score(curr, scored) < sel.max_distance
+            return euclidean_score(sel.batch_rows(curr),
+                                   scored) < sel.max_distance
         raise NotImplementedError(
             f"ring core: unsupported distance {type(sel).__name__}")
 

@@ -20,7 +20,12 @@ parameter gradients. The saved state per step is O(B (2N + F)) where the
 scan's is O(B N^2).
 
 The parameters enter the Function as explicit inputs, so that it returns
-their gradients. Stochastic selectors take the port's explicit noise: all
+their gradients. Where the forward ran with tensors in place of the
+module's own Parameters (a tensor-parallel wrapper's gathered whole
+kernels, torch.func.functional_call), the backward replays each step with
+those same tensors swapped in (utils/functional.py::call_with), so that
+the gradients are theirs and computed with the forward's values.
+Stochastic selectors take the port's explicit noise: all
 T steps' noise is drawn before the forward (or given by the caller) and
 the backward replays noise[t] at step t, the port's form of JAX's bitwise
 key replay. The forward is the fused scan's, bitwise; the gradients equal
@@ -35,6 +40,9 @@ its own evicted rows). `_Reversible` is shared with the dense core
 from __future__ import annotations
 
 import torch
+from torch import nn
+
+from gcm_tpu_torch.utils.functional import call_with
 
 
 def reversible_refusal(model, dones=None) -> str | None:
@@ -93,8 +101,13 @@ class _Reversible(torch.autograd.Function):
             leaves = [t.detach().requires_grad_() for t in
                       (xs[:, s], nodes, adj)]
             with torch.enable_grad():
-                out, nodes2, adj2, _ = spec.step(*leaves, count,
-                                                 ctx.noises[s])
+                if spec.swapped:
+                    out, nodes2, adj2, _ = call_with(
+                        spec.model, dict(zip(spec.names, params)),
+                        spec.step, *leaves, count, ctx.noises[s])
+                else:
+                    out, nodes2, adj2, _ = spec.step(*leaves, count,
+                                                     ctx.noises[s])
                 grads = torch.autograd.grad(
                     (out, nodes2, adj2), (*leaves, *params),
                     (g_outs[:, s], g_nodes, g_adj), allow_unused=True)
@@ -114,7 +127,12 @@ def run_reversible(model, spec, xs, nodes0, adj0, count0, noise, generator):
     B, T = xs.shape[0], xs.shape[1]
     noises = [model.step_noise(B, generator) if noise is None else noise[t]
               for t in range(T)]
-    params = [p for p in model.parameters() if p.requires_grad]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    spec.names = [n for n, _ in named]
+    params = [p for _, p in named]
+    # a tensor that is not an nn.Parameter stands in for the module's own
+    # (functional_call): the replay must swap it back in
+    spec.swapped = not all(isinstance(p, nn.Parameter) for p in params)
     return _Reversible.apply(spec, noises, count0, xs, nodes0, adj0, *params)
 
 

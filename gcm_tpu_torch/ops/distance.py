@@ -5,41 +5,15 @@ SpatialEdge write is the hand-written kernel of ops/cuda/sddmm.py; these are
 the scores themselves, as the JAX package computes them.
 
 EuclideanEdge's score is a mean over the whole batch's current nodes. A
-data-parallel rank holds only its rows of the batch, so inside
-`whole_batch(group)` the current nodes are all-gathered over the group
-first (parallel/comm.py; the backward keeps each rank's block), and the
-mean is the single-process one, as GSPMD keeps JAX's global.
+data-parallel rank holds only its rows of the batch, so its caller passes
+the current nodes of every rank (edges/distance.py::EuclideanEdge.
+batch_rows) and the mean is the single-process one, as GSPMD keeps JAX's
+global.
 """
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
-
 import torch
-
-from gcm_tpu_torch.parallel import comm
-
-_BATCH_GROUP = contextvars.ContextVar("gcm_batch_group", default=None)
-
-
-@contextlib.contextmanager
-def whole_batch(group):
-    """Within the block, batch-wide means run over every rank of `group`
-    (None: this process's batch alone)."""
-    token = _BATCH_GROUP.set(group)
-    try:
-        yield
-    finally:
-        _BATCH_GROUP.reset(token)
-
-
-def _batch_of(curr: torch.Tensor) -> torch.Tensor:
-    """curr [B, ...] with the other ranks' rows of a `whole_batch`."""
-    group = _BATCH_GROUP.get()
-    if group is None:
-        return curr
-    return comm.all_gather(curr, group, 0)
 
 
 def cdist(a: torch.Tensor, b: torch.Tensor, eps: float = 0.0):
@@ -54,19 +28,21 @@ def cdist(a: torch.Tensor, b: torch.Tensor, eps: float = 0.0):
 
 
 def euclidean_score(curr: torch.Tensor, nodes: torch.Tensor):
-    """EuclideanEdge's score, curr [B, F], nodes [B, N, F] -> [B, N], with
+    """EuclideanEdge's score, curr [B', F], nodes [B, N, F] -> [B, N], with
     the reference's broadcast: dist[b, n] = mean_j |curr[j] - nodes[b, n]|,
     the mean over every batch element's current node (the plain distance
-    for B == 1)."""
-    return cdist(_batch_of(curr)[None, :, :], nodes).mean(dim=1)
+    for B == 1). curr holds the whole batch's current nodes: B' = B in one
+    process, every rank's rows under data parallelism."""
+    return cdist(curr[None, :, :], nodes).mean(dim=1)
 
 
 def euclidean_score_per_step(curr: torch.Tensor, nodes: torch.Tensor):
-    """`euclidean_score` at every step of a trajectory: curr [B, T, F]
-    against nodes [B, T, N, F] (each step its own) or [B, N, F] (the same
-    at every step) -> [B, T, N]. The mean runs over the batch's current
-    nodes of the same step, as the JAX package's vmap over time takes it."""
-    c = _batch_of(curr).transpose(0, 1)[:, None]  # [T, 1, B, F]
+    """`euclidean_score` at every step of a trajectory: curr [B', T, F]
+    (the whole batch's, as above) against nodes [B, T, N, F] (each step
+    its own) or [B, N, F] (the same at every step) -> [B, T, N]. The mean
+    runs over the batch's current nodes of the same step, as the JAX
+    package's vmap over time takes it."""
+    c = curr.transpose(0, 1)[:, None]  # [T, 1, B', F]
     n = nodes.transpose(0, 1) if nodes.dim() == 4 else nodes[None]
     return cdist(c, n).mean(dim=2).transpose(0, 1)
 

@@ -36,7 +36,7 @@ from gcm_tpu_torch.models.clique_gcm import CliqueGCM
 from gcm_tpu_torch.nn.dense_conv import conv_project
 from gcm_tpu_torch.parallel import comm
 from gcm_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
-from gcm_tpu_torch.parallel.sharding import call_with
+from gcm_tpu_torch.utils.functional import call_with
 
 
 def _blocks(model, mesh, axis):

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from gcm_tpu_torch.core.graph_state import reset_where
 from gcm_tpu_torch.edges.dense import DenseEdge
 from gcm_tpu_torch.edges.distance import EuclideanEdge
 from gcm_tpu_torch.edges.sparse_learned import LearnedEdge as \
@@ -31,6 +32,7 @@ from gcm_tpu_torch.edges.sparse_temporal import TemporalEdge
 from gcm_tpu_torch.edges.temporal import TemporalBackedge
 from gcm_tpu_torch.models.banded_gcm import BandedRingGCM, BandedScoredGCM
 from gcm_tpu_torch.models.clique_gcm import CliqueGCM
+from gcm_tpu_torch.models.ring_gcm import RingDenseGCM
 from gcm_tpu_torch.models.presets import readme_dense_gcm, readme_sparse_gcm
 from gcm_tpu_torch.models.sparse_gcm import SparseGCM
 from gcm_tpu_torch.nn.dense_conv import DenseGNN, DenseGraphConv
@@ -56,9 +58,9 @@ from gcm_tpu_torch.rl.a2c import A2C
 from gcm_tpu_torch.rl.env import RecallEnv
 from gcm_tpu_torch.rl.ppo import PPO
 from gcm_tpu_torch.rl.wrappers import GCMActorCritic, SparseGCMActorCritic
-from gcm_tpu_torch.train.train_step import (make_dense_supervised_step,
-                                            make_sparse_supervised_step,
-                                            make_window_supervised_step)
+from gcm_tpu_torch.train.train_step import (
+    make_dense_supervised_step, make_sparse_supervised_step,
+    make_trajectory_supervised_step, make_window_supervised_step)
 from gcm_tpu_torch.weights import load_jax_params
 
 CPU = torch.device("cpu")
@@ -219,6 +221,46 @@ def train_step_dp_tp(spec):
                         for n, p in tpm.shards.items()}}
 
 
+def remat_steps(spec):
+    """Two Adam steps under TensorParallel on make_mesh(2, 2) whose
+    backwards recompute: the README DenseGCM through
+    make_trajectory_supervised_step(remat=spec["remat"]) (a checkpoint a
+    step or chunk), or the ring core with EuclideanEdge through its scan
+    (remat True or "reverse": the batch-wide mean recomputed or replayed
+    in the backward). The losses and the whole parameters after."""
+    mesh = make_mesh(dp=2, tp=2, device_type="cpu")
+    obs, hidden, graph = spec["obs"], spec["hidden"], spec["graph"]
+    if spec["kind"] == "dense":
+        model = readme_dense_gcm(obs, hidden, graph, device=CPU)
+    else:
+        model = RingDenseGCM(
+            _dense_gnn(hidden), preprocessor=MLP([Linear(obs, hidden,
+                                                         device=CPU)]),
+            edge_selectors=EuclideanEdge(spec["max_distance"], device=CPU),
+            graph_size=graph, device=CPU)
+    load_jax_params(model, spec["params"])
+    tpm = TensorParallel(model, mesh)
+    opt = torch.optim.Adam(tpm.parameters(), lr=1e-3)
+    rows = block(spec["xs"].shape[0], 2, axis_rank(mesh, "dp"))
+    xs, tg = _t(spec["xs"])[rows], _t(spec["targets"])[rows]
+    if spec["kind"] == "dense":
+        step = make_trajectory_supervised_step(tpm, opt,
+                                               remat=spec["remat"])
+        assert not step.use_window
+    else:
+        def step(xs, tg):
+            opt.zero_grad(set_to_none=True)
+            outs, _ = tpm.scan(xs, tpm.initial_state(xs.shape[0], obs),
+                               remat=spec["remat"])
+            loss = torch.mean((outs - tg) ** 2)
+            loss.backward()
+            tpm.sync_grads()
+            opt.step()
+            return tpm.reduce_loss(loss.detach())
+    losses = [step(xs, tg) for _ in range(2)]
+    return {"losses": losses, "params": tpm.gathered_state_dict()}
+
+
 def fast_scan_sharded(spec):
     """A node-sharded fast-core scan on d ranks: beliefs and the whole
     final state."""
@@ -305,9 +347,12 @@ def sharded_sparse(spec):
     ss, sh = single.initial_state(B, obs), sharded.initial_state(B, obs)
     outs_s, outs_h, aux_h, aux_s, modes = [], [], [], [], []
     with torch.no_grad():
-        for xs, taus in spec["windows"]:
+        for i, (xs, taus) in enumerate(spec["windows"]):
+            if i == spec.get("fresh_from"):  # a new module goes on
+                sharded = build_sparse_pair(spec, mesh)[1]
+                load_jax_params(sharded, spec["params"])
             xs, taus = _t(xs), _t(taus, torch.int32)
-            modes.append(sharded.comm_for(xs.shape[1]))
+            modes.append(sharded.comm_for(xs.shape[1], sh))
             a, ss, ax_s = single(xs, taus, ss, return_aux=True)
             b, sh, ax_h = sharded(xs, taus, sh, return_aux=True)
             outs_s.append(a)
@@ -318,7 +363,9 @@ def sharded_sparse(spec):
            "state": tuple(gather_sparse_state(sh, mesh)),
            "single_state": tuple(ss), "aux": aux_h, "single_aux": aux_s,
            "nb": sharded.nb, "epl": sharded.epl,
-           "halo4": halo4}
+           "halo4": halo4,
+           "reset_mode": sharded.comm_for(1, reset_where(
+               sh, torch.ones(B, dtype=torch.bool)))}
     if "grad_window" in spec:
         xs, taus = (_t(spec["grad_window"][0]),
                     _t(spec["grad_window"][1], torch.int32))
@@ -513,7 +560,7 @@ def dryrun(spec):
 
 RUNNERS = {f.__name__: f for f in (
     dryrun,
-    mesh_shapes, dense_scan_dp, sparse_dp, train_step_dp_tp,
+    mesh_shapes, dense_scan_dp, sparse_dp, train_step_dp_tp, remat_steps,
     fast_scan_sharded, rl_dp, rl_dp_update, sharded_sparse, refusals,
     adapter, spmm_partitioned, partitioned_gcm, auto_modes, multihost)}
 

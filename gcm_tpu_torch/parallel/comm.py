@@ -38,6 +38,10 @@ parallel line records which collectives gloo ran on CUDA tensors: with
 torch 2.11, all_gather too.) Under NCCL nothing is staged.
 A group of one rank runs no collective. Every collective goes through
 one of `all_reduce_`, `all_gather_data`, `_ppermute` and `_all_to_all`.
+
+`GroupRef` holds a group on a module (EuclideanEdge's `batch_group`,
+bound by the data-parallel wrappers): a deep copy of the module shares
+it, as it shares the communicator.
 """
 
 from __future__ import annotations
@@ -65,6 +69,23 @@ def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM):
 
 def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM):
     return all_reduce_(t.contiguous().clone(), group, op)
+
+
+def all_reduce_many(tensors, group, mean: bool = False) -> None:
+    """In place: each tensor becomes its sum (mean=True: its mean) over
+    the ranks, all of them in one all-reduce of their concatenation (no
+    gradient). None entries are skipped."""
+    tensors = [t for t in tensors if t is not None]
+    d = _size(group)
+    if d == 1 or not tensors:
+        return
+    flat = all_reduce_(torch.cat([t.reshape(-1) for t in tensors]), group)
+    if mean:
+        flat /= d
+    at = 0
+    for t in tensors:
+        t.copy_(flat[at:at + t.numel()].view_as(t))
+        at += t.numel()
 
 
 def all_gather_data(t: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -119,19 +140,10 @@ class _Enter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *gs):
-        present = [g for g in gs if g is not None]
-        if not present or _size(ctx.group) == 1:
-            return (None, *gs)
-        flat = all_reduce_(torch.cat([g.reshape(-1) for g in present]),
-                           ctx.group)
-        out, at = [], 0
-        for g in gs:
-            if g is None:
-                out.append(None)
-                continue
-            out.append(flat[at:at + g.numel()].view_as(g))
-            at += g.numel()
-        return (None, *out)
+        if _size(ctx.group) > 1:
+            gs = [None if g is None else g.clone() for g in gs]
+            all_reduce_many(gs, ctx.group)
+        return (None, *gs)
 
 
 def enter(x: torch.Tensor, group) -> torch.Tensor:
@@ -229,3 +241,14 @@ def all_to_all(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 def all_to_all_data(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """all_to_all of index data (no gradient)."""
     return _all_to_all(x, group, dim)
+
+
+class GroupRef:
+    """A process group held by a module attribute. A deep copy of the
+    module keeps the same group (a communicator is not copied)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __deepcopy__(self, memo):
+        return self

@@ -59,7 +59,6 @@ from gcm_tpu_torch.nn.dense_conv import DenseGNN, DenseGraphConv
 from gcm_tpu_torch.nn.module import MLP, Linear
 from gcm_tpu_torch.nn.sparse_conv import GraphConv, SparseGNN
 from gcm_tpu_torch.ops.dispatch import spmm
-from gcm_tpu_torch.ops.distance import whole_batch
 from gcm_tpu_torch.parallel import comm
 from gcm_tpu_torch.parallel.banded_partition import (
     banded_scan_sharded, banded_scored_scan_sharded, clique_scan_sharded,
@@ -70,7 +69,7 @@ from gcm_tpu_torch.parallel.edge_partition import (PartitionedSparseGNN,
                                                    bucket_edges_cross,
                                                    spmm_bucketed, spmm_halo)
 from gcm_tpu_torch.parallel.mesh import (axis_group, axis_rank, axis_size,
-                                         block, make_mesh)
+                                         bind_batch, block, make_mesh)
 from gcm_tpu_torch.parallel.sharded_sparse import ShardedSparseGCM
 from gcm_tpu_torch.parallel.sharding import TensorParallel
 from gcm_tpu_torch.rl.a2c import A2C
@@ -359,7 +358,9 @@ def mesh_server(ep, dev, obs=8, hidden=32, graph=16, ticks=3, seed=3):
 def dp_ring_window(ep, dev, obs=8, hidden=32, graph=16, T=4, seed=21):
     """Section 11: RingDenseGCM(EuclideanEdge).window forward and backward
     with the batch split over dp (its batch-wide mean over every rank's
-    rows), against the whole batch in one process."""
+    rows: the selector bound to the dp group), against the whole batch in
+    one process; then the scan with remat=True and remat="reverse", whose
+    backwards recompute the steps (and the mean) after the forward."""
     n, r = axis_size(ep, "dp"), axis_rank(ep, "dp")
     B = 2 * n
     g = _gen(seed)
@@ -369,22 +370,25 @@ def dp_ring_window(ep, dev, obs=8, hidden=32, graph=16, T=4, seed=21):
         edge_selectors=EuclideanEdge(1.0, device=dev), graph_size=graph,
         device=dev)
     ref = copy.deepcopy(model)
+    bind_batch(model, axis_group(ep, "dp"))
     xs = 0.3 * _randn(seed + 1, B, T, obs, device=dev)
     rows = block(B, n, r)
-    with whole_batch(axis_group(ep, "dp")):
-        outs, _ = model.window(xs[rows], model.initial_state(B // n, obs))
-    (outs ** 2).sum().backward()
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    flat = comm.all_reduce_(torch.cat([t.reshape(-1) for t in grads]),
-                            axis_group(ep, "dp"))
-    at = 0
-    for t in grads:
-        t.copy_(flat[at:at + t.numel()].view_as(t))
-        at += t.numel()
     want, _ = ref.window(xs, ref.initial_state(B, obs))
     (want ** 2).sum().backward()
-    return {"out_err": close("dp ring window", outs, want[rows], TOL_OUT),
-            "grad_err": grads_close("dp ring window", model, ref)}
+    out_err = grad_err = 0.0
+    for remat in (None, True, "reverse"):
+        label = f"dp ring {'window' if remat is None else 'scan'} " \
+                f"remat={remat}"
+        model.zero_grad(set_to_none=True)
+        st = model.initial_state(B // n, obs)
+        outs, _ = (model.window(xs[rows], st) if remat is None
+                   else model.scan(xs[rows], st, remat=remat))
+        (outs ** 2).sum().backward()
+        comm.all_reduce_many([p.grad for p in model.parameters()],
+                             axis_group(ep, "dp"))
+        out_err = max(out_err, close(label, outs, want[rows], TOL_OUT))
+        grad_err = max(grad_err, grads_close(label, model, ref))
+    return {"out_err": out_err, "grad_err": grad_err}
 
 
 def e2e_sharded_sparse(ep, dev, obs=8, hidden=32, T=4, seed=22):

@@ -70,6 +70,23 @@ def axis_rank(mesh, axis: str) -> int:
     return mesh.get_local_rank(axis)
 
 
+def bind_batch(module, group) -> None:
+    """Make every batch-wide mean inside module (EuclideanEdge's score,
+    a mean over the batch's current nodes) run over the rows of every
+    rank of `group`, as GSPMD keeps JAX's mean global under dp. The
+    data-parallel wrappers call it when they are built, so a forward, a
+    checkpoint's recompute and a reversible replay in the backward all
+    read the same group. group None (or a group of one rank) unbinds."""
+    from gcm_tpu_torch.parallel.comm import GroupRef
+
+    ref = None
+    if group is not None and dist.get_world_size(group) > 1:
+        ref = GroupRef(group)
+    for m in module.modules():
+        if hasattr(m, "batch_group"):
+            m.batch_group = ref
+
+
 @dataclass(frozen=True)
 class Spec:
     """Which mesh axis each tensor dimension is split over (None: whole),

@@ -10,7 +10,10 @@ holds (`ShardedSparseState`):
 - edges [B, 2, epl], weights [B, epl]: the edges whose SOURCE row it owns,
   in global coordinates (-1 sentinels), so that scoring, weight
   normalisation and the append stay on the rank that scored the pair;
-- num_edges [B, 1]: its append cursor; t [B]: replicated.
+- num_edges [B, 1]: its append cursor; t [B]: replicated;
+- span [B]: replicated, the longest window (valid length) of any call
+  whose edges the state holds, which bounds their sink - source
+  (`_halo`); reset with the rest of a row.
 
 One call, on every rank with the same (replicated) x [B, t, F] and taus:
 
@@ -44,15 +47,17 @@ Two differences from the JAX sharded core, each pinned by a test
 (tests/test_torch_port_sharded_sparse.py) and held to the replicated
 SparseGCM instead:
 
-- The halo of a windowed learned selector is window + the largest window
-  length t this module has run (JAX: the current call's t): an edge
-  scored in an earlier, longer call reaches back up to window + that t,
-  and JAX's halo drops it silently when t shrinks. A state built by
-  another module must be run first with its longest t, or with
-  comm="psum".
+- The halo of a windowed learned selector is window + the larger of the
+  call's t and the state's span (JAX: the call's t): an edge scored in an
+  earlier, longer call reaches back up to window + that call's length,
+  and JAX's halo drops it silently when t shrinks. The span lives in the
+  state, so a fresh module continuing a carried state (a resumed run, a
+  restored server) sizes its halo alike, and a reset row forgets it.
 - Edges that miss a rank's epl lanes (or its compaction cap) are counted,
   summed over the ranks, in aux["dropped_edges"] [B], as the replicated
-  core's; JAX throws the per-shard overflow away.
+  core's; JAX throws the per-shard overflow away. So are stored edges
+  that the halo path would leave out of the aggregation (none while the
+  span bounds them: a guard).
 
 Supported, as JAX's: TemporalEdge, LearnedEdge(deterministic=True) and
 SparseEdgeChain of those; no aux selectors, positional encoding,
@@ -79,7 +84,7 @@ from gcm_tpu_torch.ops.scatter import (append_edges, edge_mask,
 from gcm_tpu_torch.parallel import comm as cc
 from gcm_tpu_torch.parallel.edge_partition import _local_spmm
 from gcm_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
-from gcm_tpu_torch.parallel.sharding import call_with
+from gcm_tpu_torch.utils.functional import call_with
 from gcm_tpu_torch.utils.ste import grad_preserving_ones
 
 
@@ -89,19 +94,21 @@ class ShardedSparseState(NamedTuple):
     weights: torch.Tensor    # [B, epl]
     t: torch.Tensor          # [B] int32     replicated
     num_edges: torch.Tensor  # [B, 1] int32  this rank's cursor
+    span: torch.Tensor       # [B] int32     replicated: longest window
 
 
 @register_reset(ShardedSparseState)
 def _reset_sharded_sparse(state, mask_for):
     """The replicated SparseGraphState's fills: edge sentinel -1, weight
     1.0, zeroed counters."""
-    nodes, edges, weights, t, num_edges = state
+    nodes, edges, weights, t, num_edges, span = state
     return ShardedSparseState(
         nodes=torch.where(mask_for(nodes), 0.0, nodes),
         edges=torch.where(mask_for(edges), -1, edges),
         weights=torch.where(mask_for(weights), 1.0, weights),
         t=torch.where(mask_for(t), 0, t),
-        num_edges=torch.where(mask_for(num_edges), 0, num_edges))
+        num_edges=torch.where(mask_for(num_edges), 0, num_edges),
+        span=torch.where(mask_for(span), 0, span))
 
 
 def _supported(sel) -> bool:
@@ -155,7 +162,6 @@ class ShardedSparseGCM(nn.Module):
         self.nb = graph_size // self.d
         self.epl = max_edges // self.d
         self.graph_size, self.max_edges = graph_size, max_edges
-        self.seen_t = 0  # the longest window this module has run
 
     def initial_state(self, B: int, feat: int,
                       dtype=torch.float32) -> ShardedSparseState:
@@ -166,13 +172,21 @@ class ShardedSparseGCM(nn.Module):
                              device=dev),
             weights=torch.ones((B, self.epl), dtype=dtype, device=dev),
             t=torch.zeros((B,), dtype=torch.int32, device=dev),
-            num_edges=torch.zeros((B, 1), dtype=torch.int32, device=dev))
+            num_edges=torch.zeros((B, 1), dtype=torch.int32, device=dev),
+            span=torch.zeros((B,), dtype=torch.int32, device=dev))
 
     # -- structural halo bound ------------------------------------------
-    def _halo(self, t: int) -> int | None:
-        """The most sink - source of any edge in this module's history
-        (see the module docstring); None when unbounded."""
-        t_hist = max(t, self.seen_t)
+    def _halo(self, t: int, state: ShardedSparseState | None = None
+              ) -> int | None:
+        """The most sink - source of any edge after a call of window
+        length t on state (a fresh state without one; see the module
+        docstring); None when unbounded. A windowed learned selector
+        reads the state's span (one device-to-host read)."""
+
+        def t_hist():
+            if state is None or state.span.numel() == 0:
+                return t
+            return max(t, int(state.span.max()))
 
         def bound(sel):
             if sel is None:
@@ -183,14 +197,16 @@ class ShardedSparseGCM(nn.Module):
                 bs = [bound(m) for m in sel.selectors]
                 return None if None in bs else max(bs, default=0)
             if sel.window is not None:
-                return sel.window + t_hist
+                return sel.window + t_hist()
             return None
 
         return bound(self.edge_selectors)
 
-    def comm_for(self, t: int) -> tuple[str, int | None]:
-        """(the aggregation's collective, the halo) for a window of t."""
-        halo = self._halo(t)
+    def comm_for(self, t: int, state: ShardedSparseState | None = None
+                 ) -> tuple[str, int | None]:
+        """(the aggregation's collective, the halo) for a window of t on
+        state (a fresh state without one)."""
+        halo = self._halo(t, state)
         mode = self.comm
         if mode == "auto":
             mode = "halo" if halo is not None and halo <= self.nb else "psum"
@@ -220,7 +236,6 @@ class ShardedSparseGCM(nn.Module):
                                   + [x], self.group)
         out = call_with(self, dict(zip(names, entered[:-1])), "_step",
                         entered[-1], taus, state)
-        self.seen_t = max(self.seen_t, x.shape[1])
         return out if return_aux else out[:2]
 
     def _grid(self, sel, x_in, nodes_b, rows, T, taus, new_mask, cols, aux,
@@ -266,8 +281,8 @@ class ShardedSparseGCM(nn.Module):
         B, t, _ = x_in.shape
         nb, epl, s = self.nb, self.epl, self.rank
         base = s * nb
-        mode, halo = self.comm_for(t)
-        nodes_b, edges_b, w_b, T, ne_b = state
+        mode, halo = self.comm_for(t, state)
+        nodes_b, edges_b, w_b, T, ne_b, span = state
         if nodes_b.shape[1] != nb or edges_b.shape[-1] != epl \
                 or ne_b.shape != (B, 1):
             raise ValueError("the state is not this rank's 1/d block")
@@ -315,7 +330,6 @@ class ShardedSparseGCM(nn.Module):
                                                vals, ok)
             dropped = ((count - n_new) + (before + n_new - ne)).to(
                 torch.int32)
-        aux["dropped_edges"] = cc._all_reduce(dropped, self.group)
 
         # 4. the preprocessor over the local block
         h = nodes_b
@@ -326,14 +340,17 @@ class ShardedSparseGCM(nn.Module):
         valid = edge_mask(edges_b)
         src_l = edges_b[:, 1, :] - base
         valid = valid & (src_l >= 0) & (src_l < nb)
+        if mode == "halo":
+            sink_l = edges_b[:, 0, :] - base
+            ok = valid & (sink_l >= 0) & (sink_l < nb + halo)
+            dropped = dropped + (valid & ~ok).sum(-1).to(torch.int32)
+        aux["dropped_edges"] = cc._all_reduce(dropped, self.group)
         for layer in self.gnn.layers:
             if not isinstance(layer, GraphConv):
                 h = layer(h)
                 continue
             F = h.shape[-1]
             if mode == "halo":
-                sink_l = edges_b[:, 0, :] - base
-                ok = valid & (sink_l >= 0) & (sink_l < nb + halo)
                 acc = _local_spmm(torch.cat([h, h.new_zeros(B, halo, F)], 1),
                                   sink_l, src_l, ok, w_b)
                 agg = acc[:, :nb]
@@ -359,7 +376,9 @@ class ShardedSparseGCM(nn.Module):
                        grad="identity")
         new_state = ShardedSparseState(nodes_b, edges_b, w_b,
                                        (T + taus).to(torch.int32),
-                                       ne[:, None])
+                                       ne[:, None],
+                                       torch.maximum(span, taus).to(
+                                           torch.int32))
         return mx, new_state, aux
 
     # -- guards ----------------------------------------------------------
@@ -373,12 +392,15 @@ class ShardedSparseGCM(nn.Module):
 
 def shard_sparse_state(state, d: int, r: int,
                        device=None) -> ShardedSparseState:
-    """Rank r of d's blocks of a global sharded state (any 5-tuple of
-    arrays in ShardedSparseState's field order, JAX's included: nodes
-    [B, N, F], edges [B, 2, d * epl], weights [B, d * epl], t [B],
-    num_edges [B, d]); a rank passes its mesh axis' size and its rank on
-    it. `merge_sparse_states` and `gather_sparse_state` go back."""
-    nodes, edges, weights, t, num_edges = (np.asarray(a) for a in state)
+    """Rank r of d's blocks of a global sharded state (a tuple of arrays
+    in ShardedSparseState's field order: nodes [B, N, F], edges [B, 2,
+    d * epl], weights [B, d * epl], t [B], num_edges [B, d], span [B]); a
+    rank passes its mesh axis' size and its rank on it. JAX's state has
+    no span: its t stands in, a bound on every edge's sink - source (the
+    halo may then be wider than needed, never too short).
+    `merge_sparse_states` and `gather_sparse_state` go back."""
+    nodes, edges, weights, t, num_edges = (np.asarray(a) for a in state[:5])
+    span = np.asarray(state[5]) if len(state) > 5 else t
     nb, epl = nodes.shape[1] // d, edges.shape[-1] // d
 
     def on(a, dtype):
@@ -390,7 +412,8 @@ def shard_sparse_state(state, d: int, r: int,
         edges=on(edges[..., r * epl:(r + 1) * epl], torch.int32),
         weights=on(weights[:, r * epl:(r + 1) * epl], torch.float32),
         t=on(t, torch.int32),
-        num_edges=on(num_edges[:, r:r + 1], torch.int32))
+        num_edges=on(num_edges[:, r:r + 1], torch.int32),
+        span=on(span, torch.int32))
 
 
 def merge_sparse_states(states) -> ShardedSparseState:
@@ -401,7 +424,8 @@ def merge_sparse_states(states) -> ShardedSparseState:
         edges=torch.cat([s.edges for s in states], 2),
         weights=torch.cat([s.weights for s in states], 1),
         t=states[0].t.clone(),
-        num_edges=torch.cat([s.num_edges for s in states], 1))
+        num_edges=torch.cat([s.num_edges for s in states], 1),
+        span=states[0].span.clone())
 
 
 def gather_sparse_state(state: ShardedSparseState, mesh,
@@ -415,4 +439,5 @@ def gather_sparse_state(state: ShardedSparseState, mesh,
         edges=cc.all_gather_data(state.edges, g, 2),
         weights=cc.all_gather_data(state.weights, g, 1),
         t=state.t.clone(),
-        num_edges=cc.all_gather_data(state.num_edges, g, 1))
+        num_edges=cc.all_gather_data(state.num_edges, g, 1),
+        span=state.span.clone())

@@ -21,22 +21,29 @@ Each call gathers the shards into whole kernels (`comm.all_gather`, whose
 backward keeps this rank's block of the gradient: the tp ranks of one dp
 group run the same batch, so a reduce-scatter would count it tp times)
 and runs the model with them, as GSPMD must gather around a pallas_call it
-cannot split: the fused dense kernels take whole weights. After the
-backward, `sync_grads` averages every gradient over dp, as GSPMD's
-all-reduce of the batch-split mean does; the train steps call it. A
-batch-wide mean inside the model (EuclideanEdge's) runs over the whole
-dp batch (ops/distance.py::whole_batch).
+cannot split: the fused dense kernels take whole weights. The call also
+copies the whole kernels' values into the model's own Parameters (no
+gradient), so that a recompute in the backward that reads the model's
+attributes after the call (a checkpointed step under remat) computes
+with the forward's weights; the gradient still reaches the shards through
+the forward's graph. After the backward, `sync_grads` averages every
+gradient over dp, as GSPMD's all-reduce of the batch-split mean does; the
+train steps call it. A batch-wide mean inside the model (EuclideanEdge's)
+runs over the whole dp batch: the wrapper binds the model's selectors to
+the dp group (mesh.py::bind_batch).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
-from torch.func import functional_call
 
-from gcm_tpu_torch.ops.distance import whole_batch
 from gcm_tpu_torch.parallel import comm
-from gcm_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
+from gcm_tpu_torch.parallel.mesh import (axis_group, axis_rank, axis_size,
+                                         bind_batch)
+from gcm_tpu_torch.utils.functional import call_with
 
 
 def _walk(tree, path=()):
@@ -93,32 +100,12 @@ def shard_pytree(mesh, tree, specs, axis: str = "dp"):
     return type(tree)(*out)
 
 
-class _Method(nn.Module):
-    def __init__(self, model, method):
-        super().__init__()
-        self.model = model
-        self.method = method
-
-    def forward(self, *args, **kw):
-        fn = (getattr(self.model, self.method)
-              if isinstance(self.method, str) else self.method)
-        return fn(*args, **kw)
-
-
-def call_with(model, params: dict, method, *args, **kw):
-    """model.<method>(*args, **kw), or method(*args, **kw) for a callable
-    that uses model, with model's parameters replaced by params {name:
-    tensor} for the call (torch.func.functional_call)."""
-    return functional_call(_Method(model, method),
-                           {"model." + n: t for n, t in params.items()},
-                           args, kw)
-
-
 class TensorParallel(nn.Module):
     """model under a (dp, tp) mesh: see the module docstring. Its
-    `scan`, `window` and `__call__` run the model's with whole weights;
-    `initial_state` is the model's. The caller hands each rank its dp
-    block of the batch (`mesh.shard_tensor` with `batch_sharding`)."""
+    `scan`, `window` (None where the model has none) and `__call__` run
+    the model's with whole weights; `initial_state` and the window gates
+    are the model's. The caller hands each rank its dp block of the batch
+    (`mesh.shard_tensor` with `batch_sharding`)."""
 
     def __init__(self, model, mesh, dp_axis: str = "dp", tp_axis: str = "tp"):
         super().__init__()
@@ -136,6 +123,7 @@ class TensorParallel(nn.Module):
                 nb = p.shape[dim] // tp
                 p = nn.Parameter(p.detach().narrow(dim, r * nb, nb).clone())
             self.shards[name.replace(".", "/")] = p
+        bind_batch(model, self.dp_group)
 
     def whole_params(self) -> dict:
         """{model parameter name: the whole tensor}, gathered over tp."""
@@ -147,9 +135,13 @@ class TensorParallel(nn.Module):
         return out
 
     def _run(self, method, *args, **kw):
-        with whole_batch(self.dp_group if self.dp > 1 else None):
-            return call_with(self.model, self.whole_params(), method, *args,
-                             **kw)
+        whole = self.whole_params()
+        own = dict(self.model.named_parameters())
+        with torch.no_grad():
+            for name, dim in self.specs.items():
+                if dim is not None:
+                    own[name].copy_(whole[name])
+        return call_with(self.model, whole, method, *args, **kw)
 
     def forward(self, *args, **kw):
         return self._run("forward", *args, **kw)
@@ -157,24 +149,32 @@ class TensorParallel(nn.Module):
     def scan(self, *args, **kw):
         return self._run("scan", *args, **kw)
 
-    def window(self, *args, **kw):
-        return self._run("window", *args, **kw)
+    @property
+    def window(self):
+        if getattr(self.model, "window", None) is None:
+            return None
+        return functools.partial(self._run, "window")
+
+    @property
+    def direction(self):
+        return getattr(self.model, "direction", "forward")
+
+    def window_profitable(self, *args, **kw) -> bool:
+        gate = getattr(self.model, "window_profitable", None)
+        return True if gate is None else gate(*args, **kw)
+
+    def window_applicable(self, *args, **kw) -> bool:
+        gate = getattr(self.model, "window_applicable", None)
+        return True if gate is None else gate(*args, **kw)
 
     def initial_state(self, *args, **kw):
         return self.model.initial_state(*args, **kw)
 
     def sync_grads(self) -> None:
         """Average every parameter's gradient over dp (one all-reduce)."""
-        grads = [p.grad for p in self.shards.values() if p.grad is not None]
-        if self.dp == 1 or not grads:
-            return
-        flat = comm.all_reduce_(torch.cat([g.reshape(-1) for g in grads]),
-                                self.dp_group)
-        flat /= self.dp
-        at = 0
-        for g in grads:
-            g.copy_(flat[at:at + g.numel()].view_as(g))
-            at += g.numel()
+        if self.dp > 1:
+            comm.all_reduce_many([p.grad for p in self.shards.values()],
+                                 self.dp_group, mean=True)
 
     def reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
         """The global batch's mean loss from this rank's block mean."""

@@ -25,8 +25,11 @@ batch's env and action noise from its generator (seeded alike on every
 rank), runs the policy on its own rows only and all-gathers the logits
 each step, so every rank collects the single-process trajectory and
 keeps its rows of it (JAX gets the same from GSPMD splitting one global
-draw). EuclideanEdge's batch-wide mean runs over every rank's rows
-(ops/distance.py::whole_batch). The replay and loss run on the rank's
+draw). EuclideanEdge's batch-wide mean runs over every rank's rows: the
+trainer binds the policy's selectors to the dp group when it is built
+(parallel/mesh.py::bind_batch), so the collection, the replay and any
+recompute of it in the backward read the same group. The replay and loss
+run on the rank's
 rows; the gradients are averaged over dp before clipping and the step
 (the global batch's mean loss, as GSPMD's all-reduce gives), and the
 metrics likewise.
@@ -34,14 +37,12 @@ metrics likewise.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from gcm_tpu_torch.core.graph_state import reset_where
-from gcm_tpu_torch.ops.distance import whole_batch
-from gcm_tpu_torch.parallel.comm import all_gather_data, all_reduce_
-from gcm_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
+from gcm_tpu_torch.parallel.comm import all_gather_data, all_reduce_many
+from gcm_tpu_torch.parallel.mesh import (axis_group, axis_rank, axis_size,
+                                         bind_batch)
 from gcm_tpu_torch.rl.distributions import Categorical
 from gcm_tpu_torch.rl.wrappers import train_remat_for
 from gcm_tpu_torch.utils.debug import grad_norms
@@ -88,6 +89,7 @@ class A2C:
             self.dp_group = axis_group(dp_mesh, dp_axis)
             self.dp = axis_size(dp_mesh, dp_axis)
             self.dp_rank = axis_rank(dp_mesh, dp_axis)
+            bind_batch(policy, self.dp_group)
         self.env = env
         self.policy = policy
         self.dist = dist if dist is not None else Categorical()
@@ -115,27 +117,14 @@ class A2C:
         nb = B // self.dp
         return slice(self.dp_rank * nb, (self.dp_rank + 1) * nb)
 
-    def _whole_batch(self):
-        """Batch-wide means (EuclideanEdge's) over every dp rank's rows."""
-        return (whole_batch(self.dp_group) if self.dp > 1
-                else contextlib.nullcontext())
-
     def _own(self, traj: dict) -> dict:
         rows = self._rows(traj["obs"].shape[0])
         return {k: v[rows] for k, v in traj.items()}
 
     def _dp_mean(self, tensors):
         """The mean over dp of each tensor (in place; one all-reduce)."""
-        tensors = [t for t in tensors if t is not None]
-        if self.dp == 1 or not tensors:
-            return
-        flat = all_reduce_(torch.cat([t.reshape(-1) for t in tensors]),
-                           self.dp_group)
-        flat /= self.dp
-        at = 0
-        for t in tensors:
-            t.copy_(flat[at:at + t.numel()].view_as(t))
-            at += t.numel()
+        if self.dp > 1:
+            all_reduce_many(tensors, self.dp_group, mean=True)
 
     # -- rollout (no gradients) ----------------------------------------------
     @torch.no_grad()
@@ -151,9 +140,8 @@ class A2C:
         prev = self.dist.neutral_action(B, obs.device)
         steps = []
         for _ in range(self.rollout_len):
-            with self._whole_batch():
-                logits, _, mem = self.policy.step(obs[rows], mem,
-                                                  prev_action=prev[rows])
+            logits, _, mem = self.policy.step(obs[rows], mem,
+                                              prev_action=prev[rows])
             if self.dp > 1:
                 logits = all_gather_data(logits, self.dp_group, 0)
             action = self.dist.sample(generator, logits)
@@ -179,12 +167,11 @@ class A2C:
                 "replay_dones=False replays without episode ends, but an "
                 "episode ended before the rollout's last step: the replay "
                 "would not see what collection saw")
-        with self._whole_batch():
-            logits, values, _ = self.policy(
-                obs, self.policy.initial_state(B),
-                prev_actions=traj["prev_actions"], dones=replay_d,
-                remat=train_remat_for(getattr(self.policy, "core", None), T,
-                                      dones=replay_d), train=True)
+        logits, values, _ = self.policy(
+            obs, self.policy.initial_state(B),
+            prev_actions=traj["prev_actions"], dones=replay_d,
+            remat=train_remat_for(getattr(self.policy, "core", None), T,
+                                  dones=replay_d), train=True)
         return logits, values
 
     def loss(self, traj):

@@ -19,10 +19,11 @@ with the number of cards: every rank runs the same bookkeeping on the
 same requests, steps its own rows and one all_gather of the stepped rows
 gives every rank the same reply. Sessions interact only through a
 batch-wide mean (EuclideanEdge's, over the whole pool), which gathers the
-pool's current nodes (ops/distance.py::whole_batch); otherwise the step
-needs no collective. `snapshot` gathers the whole pool, and `restore`
-takes this rank's rows of one, so snapshots cross between mesh and
-unsharded servers.
+pool's current nodes: the server binds the model's (or the policy's)
+selectors to the mesh axis when it is built (parallel/mesh.py::
+bind_batch); otherwise the step needs no collective. `snapshot`
+gathers the whole pool, and `restore` takes this rank's rows of one, so
+snapshots cross between mesh and unsharded servers.
 """
 
 from __future__ import annotations
@@ -34,9 +35,9 @@ import torch
 
 from gcm_tpu_torch.core.graph_state import reset_where
 from gcm_tpu_torch.device import resolve_device
-from gcm_tpu_torch.ops.distance import whole_batch
 from gcm_tpu_torch.parallel.comm import all_gather_data
-from gcm_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
+from gcm_tpu_torch.parallel.mesh import (axis_group, axis_rank, axis_size,
+                                         bind_batch)
 
 
 def _tree_map(fn, tree):
@@ -62,7 +63,8 @@ class SessionServer:
         matching capacity-sized `initial_state` and model=None (see
         `from_step`). Runs on `device` (default: the CUDA card). mesh: a
         DeviceMesh whose axis `axis` splits the pool's rows (its size must
-        divide capacity; see the module docstring)."""
+        divide capacity; see the module docstring); a step_fn's model is
+        bound to the axis by its builder (`from_policy` does it)."""
         self.device = resolve_device(device)
         self.model = model
         self.capacity = capacity
@@ -77,6 +79,8 @@ class SessionServer:
             r, nb = axis_rank(mesh, axis), capacity // d
             self._group = axis_group(mesh, axis)
             self._rows = slice(r * nb, (r + 1) * nb)
+            if model is not None:
+                bind_batch(model, self._group)
         self._pool = self._rows.stop - self._rows.start
         if initial_state is not None:
             self.state = _tree_map(lambda t: self._own_rows(t).to(
@@ -102,6 +106,8 @@ class SessionServer:
             raise ValueError(
                 "serving tracks no per-session action history; build the "
                 "policy with use_prev_action=False")
+        if mesh is not None:
+            bind_batch(policy, axis_group(mesh, axis))
 
         def step_fn(obs, state):
             logits, value, state = policy.step(obs, state)
@@ -136,8 +142,7 @@ class SessionServer:
     @torch.no_grad()
     def _step(self, obs, active):
         obs, active = obs[self._rows], active[self._rows]
-        with whole_batch(self._group):
-            beliefs, new_state = self._model_step(obs, self.state)
+        beliefs, new_state = self._model_step(obs, self.state)
 
         def merge(n, o):
             # leaves without a per-session leading axis (the size-0

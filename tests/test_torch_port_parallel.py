@@ -15,7 +15,10 @@ tests/test_parallel.py:
 - dp parity of the README DenseGCM's scan and SparseGCM's window against
   JAX (1e-5); dp x tp dense and window train steps and the dp sparse
   step against jax.value_and_grad + optax.adam (loss 1e-5, parameters
-  1e-4);
+  1e-4); two dp x tp Adam steps whose backwards recompute (the dense
+  trajectory step and the ring core with EuclideanEdge, its batch-wide
+  mean over dp, each with remat=True and remat="reverse")
+  against two optax steps (loss 1e-5, parameters 1e-4);
 - the node-sharded banded (hop at the halo boundary included), scored
   and clique scans against JAX's sharded scans and the unsharded ones
   (beliefs 1e-5, final states exact up to 1e-6);
@@ -26,7 +29,7 @@ tests/test_parallel.py:
   within its tolerance against the unsharded port.
 """
 
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +46,7 @@ from gcm_tpu.models.banded_gcm import BandedRingGCM as JaxBanded
 from gcm_tpu.models.banded_gcm import BandedScoredGCM as JaxScored
 from gcm_tpu.models.clique_gcm import CliqueGCM as JaxClique
 from gcm_tpu.models.presets import readme_dense_gcm, readme_sparse_gcm
+from gcm_tpu.models.ring_gcm import RingDenseGCM as JaxRing
 from gcm_tpu.nn.dense_conv import DenseGNN as JaxDenseGNN
 from gcm_tpu.nn.dense_conv import DenseGraphConv as JaxDenseGraphConv
 from gcm_tpu.nn.module import MLP as JaxMLP
@@ -56,10 +60,11 @@ from gcm_tpu.rl.ppo import PPO as JaxPPO
 from gcm_tpu.rl.wrappers import GCMActorCritic as JaxGCMActorCritic
 from gcm_tpu.train.train_step import (make_dense_supervised_step,
                                       make_sparse_supervised_step,
+                                      make_trajectory_supervised_step,
                                       make_window_supervised_step)
-from gcm_tpu_torch import (BandedRingGCM, DenseGNN, DenseGraphConv,
-                           GCMActorCritic, RecallEnv, TemporalBackedge,
-                           jax_paths)
+from gcm_tpu_torch import (MLP, BandedRingGCM, DenseGNN, DenseGraphConv,
+                           EuclideanEdge, GCMActorCritic, Linear, RecallEnv,
+                           RingDenseGCM, TemporalBackedge, jax_paths)
 from gcm_tpu_torch import readme_dense_gcm as port_readme_dense
 from gcm_tpu_torch import readme_sparse_gcm as port_readme_sparse
 from gcm_tpu_torch.parallel.cases import run_cases
@@ -68,6 +73,7 @@ from gcm_tpu_torch.parallel.dryrun import SECTIONS
 
 OUT_TOL, PARAM_TOL = 1e-5, 1e-4
 LR = 3e-3
+JAX_THREADS = 4
 
 
 def np_tree(tree):
@@ -134,6 +140,54 @@ def step_case(kind, seed):
                                        optax.adam(1e-3).init(params), *args)
         return {"loss": float(loss), "params": np_tree(p_ref),
                 "specs": jax_param_specs(params)}
+
+    return spec, refs
+
+
+def remat_case(kind, seed, max_distance=1.0):
+    """Two Adam steps of the dense trajectory step (remat=True) or of the
+    ring core with EuclideanEdge (no remat: the same function) on the
+    global batch; the port runs them under dp 2 x tp 2 with remat."""
+    B, T, obs, hidden, graph = 8, 4, 8, 16, 12
+    rng = np.random.default_rng(seed)
+    xs = (0.3 * rng.standard_normal((B, T, obs))).astype(np.float32)
+    tg = rng.standard_normal((B, T, hidden)).astype(np.float32)
+    opt = optax.adam(1e-3)
+    if kind == "dense":
+        model = readme_dense_gcm(obs_size=obs, hidden=hidden,
+                                 graph_size=graph)
+        step = make_trajectory_supervised_step(model, opt, remat=True)
+    else:
+        model = JaxRing(JaxDenseGNN([JaxDenseGraphConv(hidden, hidden),
+                                     jnp.tanh,
+                                     JaxDenseGraphConv(hidden, hidden),
+                                     jnp.tanh]),
+                        preprocessor=JaxMLP([JaxLinear(obs, hidden)]),
+                        edge_selectors=JaxEuclideanEdge(
+                            max_distance=max_distance),
+                        graph_size=graph)
+
+        def loss_fn(p, x, y):
+            outs, _ = model.scan(p, x, model.initial_state(B, obs))
+            return jnp.mean((outs - y) ** 2)
+
+        def step(p, st, x, y):
+            loss, g = jax.value_and_grad(loss_fn)(p, x, y)
+            upd, st = opt.update(g, st, p)
+            return optax.apply_updates(p, upd), st, loss
+
+    params = model.init(jax.random.PRNGKey(seed))
+    spec = {"kind": kind, "obs": obs, "hidden": hidden, "graph": graph,
+            "max_distance": max_distance, "params": np_tree(params),
+            "xs": xs, "targets": tg}
+
+    def refs():
+        p, st, losses = params, opt.init(params), []
+        f = jax.jit(step)
+        for _ in range(2):
+            p, st, loss = f(p, st, jnp.asarray(xs), jnp.asarray(tg))
+            losses.append(float(loss))
+        return {"losses": losses, "params": np_tree(p)}
 
     return spec, refs
 
@@ -235,83 +289,126 @@ def recall_twin(core):
 @pytest.fixture(scope="module")
 def world():
     """Every case's spec, then the world of 4 ranks in a thread while the
-    JAX references compile and run here; (refs, [rank results])."""
+    JAX references compile and run here, in threads (XLA compiles without
+    the GIL); (refs, [rank results])."""
     torch.set_num_threads(1)
     saved = {k: getattr(jax_config, k) for k in (
         "SCAN_UNROLL", "DENSE_SCAN_UNROLL", "RING_SCAN_UNROLL")}
     for k in saved:  # JAX's scans unrolled once: compile time only
         setattr(jax_config, k, 1)
     try:
-        cases, refs = {}, {}
-
-        def add(name, runner, pair):
-            cases[name] = (runner, pair[0])
-            refs[name] = pair[1]
-
-        add("mesh", "mesh_shapes", ({}, lambda: None))
-        B, T, obs = 8, 6, 8
-        rng = np.random.default_rng(0)
-        xs = rng.standard_normal((B, T, obs)).astype(np.float32)
-        dense = readme_dense_gcm(obs_size=obs, hidden=16, graph_size=16)
-        dparams = dense.init(jax.random.PRNGKey(0))
-        sparse = readme_sparse_gcm(obs_size=obs, hidden=16, graph_size=16,
-                                   max_edges=64)
-        sparams = sparse.init(jax.random.PRNGKey(0))
-        taus = np.asarray([5, 2, 4, 5, 0, 5, 3, 5], np.int32)
-
-        def dense_want():
-            return np.asarray(jax.jit(lambda p, x: dense.scan(
-                p, x, dense.initial_state(B, obs)))(dparams,
-                                                     jnp.asarray(xs))[0])
-
-        def sparse_want():
-            return np.asarray(jax.jit(lambda p, x, t: sparse(
-                p, x, t, sparse.initial_state(B, obs)))(
-                sparams, jnp.asarray(xs[:, :5]), jnp.asarray(taus))[0])
-
-        for d in (2, 4):
-            add(f"dense_scan{d}", "dense_scan_dp", (
-                {"d": d, "obs": obs, "hidden": 16, "graph": 16,
-                 "params": np_tree(dparams), "xs": xs}, dense_want))
-            add(f"sparse{d}", "sparse_dp", (
-                {"d": d, "obs": obs, "hidden": 16, "graph": 16,
-                 "max_edges": 64, "params": np_tree(sparams),
-                 "xs": xs[:, :5], "taus": taus}, sparse_want))
-        for kind in ("dense", "window", "sparse"):
-            add(f"step_{kind}", "train_step_dp_tp", step_case(kind, 1))
-        add("banded_1_d4", "fast_scan_sharded", fast_case("banded", 4, 16,
-                                                          hops=(1,)))
-        add("banded_12_d2", "fast_scan_sharded",
-            fast_case("banded", 2, 16, hops=(1, 2)))
-        add("banded_boundary", "fast_scan_sharded",
-            fast_case("banded", 4, 8, hops=(2,)))  # max hop == block
-        add("scored_w2", "fast_scan_sharded",
-            fast_case("scored", 4, 16, window=2))
-        add("scored_boundary", "fast_scan_sharded",
-            fast_case("scored", 4, 8, window=2))  # window == block
-        add("scored_learned", "fast_scan_sharded",
-            fast_case("scored", 4, 16, window=3, hops=(1,), learned=True))
-        add("clique_d4", "fast_scan_sharded", fast_case("clique", 4, 16))
-        add("clique_uneven", "fast_scan_sharded",
-            fast_case("clique", 2, 16, T=21))
-        add("a2c", "rl_dp", rl_case("a2c", "ring", 4, 1))
-        add("ppo", "rl_dp", rl_case("ppo", "ring", 2, 2))
-        add("a2c_clique", "rl_dp", rl_case("a2c", "clique", 4, 3))
-        add("a2c_update", "rl_dp_update", ({
-            "algo": "a2c", "core": "ring", "d": 4, "lr": LR, "seed": 4,
-            "B": 8, "params": recall_params("ring", 4)}, lambda: None))
-        add("ppo_update", "rl_dp_update", ({
-            "algo": "ppo", "core": "banded", "d": 2, "lr": LR, "seed": 5,
-            "B": 8, "params": recall_params("banded", 5)}, lambda: None))
-        add("dryrun", "dryrun", ({}, lambda: None))
-        with ThreadPoolExecutor(1) as pool:
-            ranks = pool.submit(spawn_world, run_cases, 4, "cpu",
-                                args=("cpu", cases), timeout_s=300)
-            refs = {name: thunk() for name, thunk in refs.items()}
-            return refs, ranks.result()
+        with ThreadPoolExecutor(JAX_THREADS) as pool, \
+                ThreadPoolExecutor(1) as spawner:
+            return build_world(pool, spawner)
     finally:
         for k, v in saved.items():
             setattr(jax_config, k, v)
+
+
+def readme_cases():
+    """The README DenseGCM's scan and SparseGCM's window under dp, d = 2
+    and 4 (d = 4 shares d = 2's references): {name: (spec, refs)}."""
+    B, T, obs = 8, 6, 8
+    rng = np.random.default_rng(0)
+    xs = rng.standard_normal((B, T, obs)).astype(np.float32)
+    dense = readme_dense_gcm(obs_size=obs, hidden=16, graph_size=16)
+    dparams = dense.init(jax.random.PRNGKey(0))
+    sparse = readme_sparse_gcm(obs_size=obs, hidden=16, graph_size=16,
+                               max_edges=64)
+    sparams = sparse.init(jax.random.PRNGKey(0))
+    taus = np.asarray([5, 2, 4, 5, 0, 5, 3, 5], np.int32)
+
+    def dense_want():
+        return np.asarray(jax.jit(lambda p, x: dense.scan(
+            p, x, dense.initial_state(B, obs)))(dparams,
+                                                 jnp.asarray(xs))[0])
+
+    def sparse_want():
+        return np.asarray(jax.jit(lambda p, x, t: sparse(
+            p, x, t, sparse.initial_state(B, obs)))(
+            sparams, jnp.asarray(xs[:, :5]), jnp.asarray(taus))[0])
+
+    out = {}
+    for i, d in enumerate((2, 4)):
+        out[f"dense_scan{d}"] = (
+            {"d": d, "obs": obs, "hidden": 16, "graph": 16,
+             "params": np_tree(dparams), "xs": xs},
+            dense_want if i == 0 else None)
+        out[f"sparse{d}"] = (
+            {"d": d, "obs": obs, "hidden": 16, "graph": 16,
+             "max_edges": 64, "params": np_tree(sparams),
+             "xs": xs[:, :5], "taus": taus},
+            sparse_want if i == 0 else None)
+    return out
+
+
+def build_world(pool, spawner):
+    cases = {}
+
+    def add(name, runner, pair):
+        """pair: (spec, refs thunk or None), a future of one, or a
+        callable that makes one once the futures are done."""
+        cases[name] = (runner, pair)
+
+    add("mesh", "mesh_shapes", ({}, lambda: None))
+    readme = pool.submit(readme_cases)
+    for name, runner in (("dense_scan2", "dense_scan_dp"),
+                         ("sparse2", "sparse_dp"),
+                         ("dense_scan4", "dense_scan_dp"),
+                         ("sparse4", "sparse_dp")):
+        add(name, runner, lambda name=name: readme.result()[name])
+    for kind in ("dense", "window", "sparse"):
+        add(f"step_{kind}", "train_step_dp_tp",
+            pool.submit(step_case, kind, 1))
+    for kind in ("dense", "ring"):
+        rc = pool.submit(remat_case, kind, 6)
+        for i, remat in enumerate((True, "reverse")):
+            add(f"remat_{kind}_{remat}", "remat_steps",
+                lambda rc=rc, i=i, remat=remat: (
+                    dict(rc.result()[0], remat=remat),
+                    rc.result()[1] if i == 0 else None))
+    for name, args, kw in (
+            ("banded_1_d4", ("banded", 4, 16), {"hops": (1,)}),
+            ("banded_12_d2", ("banded", 2, 16), {"hops": (1, 2)}),
+            # max hop == block
+            ("banded_boundary", ("banded", 4, 8), {"hops": (2,)}),
+            ("scored_w2", ("scored", 4, 16), {"window": 2}),
+            # window == block
+            ("scored_boundary", ("scored", 4, 8), {"window": 2}),
+            ("scored_learned", ("scored", 4, 16),
+             {"window": 3, "hops": (1,), "learned": True}),
+            ("clique_d4", ("clique", 4, 16), {}),
+            ("clique_uneven", ("clique", 2, 16), {"T": 21})):
+        add(name, "fast_scan_sharded", pool.submit(fast_case, *args, **kw))
+    add("a2c", "rl_dp", pool.submit(rl_case, "a2c", "ring", 4, 1))
+    add("ppo", "rl_dp", pool.submit(rl_case, "ppo", "ring", 2, 2))
+    add("a2c_clique", "rl_dp", pool.submit(rl_case, "a2c", "clique", 4, 3))
+    for name, algo, core, d, seed in (("a2c_update", "a2c", "ring", 4, 4),
+                                      ("ppo_update", "ppo", "banded", 2, 5)):
+        rp = pool.submit(recall_params, core, seed)
+        add(name, "rl_dp_update", lambda rp=rp, algo=algo, core=core, d=d,
+            seed=seed: ({"algo": algo, "core": core, "d": d, "lr": LR,
+                         "seed": seed, "B": 8, "params": rp.result()},
+                        lambda: None))
+    add("dryrun", "dryrun", ({}, lambda: None))
+    pairs = {}
+    for name, (_, p) in cases.items():
+        if isinstance(p, Future):
+            p = p.result()
+        elif callable(p):
+            p = p()
+        pairs[name] = p
+    ranks = spawner.submit(spawn_world, run_cases, 4, "cpu", args=(
+        "cpu", {name: (runner, pairs[name][0])
+                for name, (runner, _) in cases.items()}), timeout_s=300)
+    futs = {name: pool.submit(pair[1]) for name, pair in pairs.items()
+            if pair[1] is not None}
+    refs = {name: f.result() for name, f in futs.items()}
+    for kind in ("dense", "ring"):
+        refs[f"remat_{kind}_reverse"] = refs[f"remat_{kind}_True"]
+    refs["dense_scan4"], refs["sparse4"] = refs["dense_scan2"], \
+        refs["sparse2"]
+    return refs, ranks.result()
 
 
 def check_mesh_and_sharding_rules(refs, ranks):
@@ -369,6 +466,34 @@ def check_dp_and_tp_steps(refs, ranks):
                                        atol=OUT_TOL, err_msg=kind)
             named_close(got["params"], twin, want["params"], PARAM_TOL, 0,
                         f"{kind} step")
+
+
+def check_remat_steps(refs, ranks):
+    """Two dp x tp Adam steps whose backwards recompute after the forward
+    (a checkpoint's recompute, the reversible replay): the dense
+    trajectory step and the ring core with EuclideanEdge
+    (remat True and "reverse") against two optax steps of the global batch:
+    losses 1e-5, parameters 1e-4."""
+    obs, hidden, graph = 8, 16, 12
+    twins = {"dense": port_readme_dense(obs, hidden, graph, device="cpu"),
+             "ring": RingDenseGCM(
+                 DenseGNN([DenseGraphConv(hidden, hidden, device="cpu"),
+                           torch.tanh,
+                           DenseGraphConv(hidden, hidden, device="cpu"),
+                           torch.tanh]),
+                 preprocessor=MLP([Linear(obs, hidden, device="cpu")]),
+                 edge_selectors=EuclideanEdge(1.0, device="cpu"),
+                 graph_size=graph, device="cpu")}
+    for name in ("remat_dense_True", "remat_dense_reverse",
+                 "remat_ring_True", "remat_ring_reverse"):
+        want = refs[name]
+        for r in ranks:
+            got = r[name]
+            np.testing.assert_allclose([float(x) for x in got["losses"]],
+                                       want["losses"], atol=OUT_TOL,
+                                       rtol=0, err_msg=name)
+            named_close(got["params"], twins[name.split("_")[1]],
+                        want["params"], PARAM_TOL, 0, name)
 
 
 def check_sharded_fast_scans(refs, ranks):
@@ -431,6 +556,7 @@ def test_parallel_matches_jax(world):
     refs, ranks = world
     check_mesh_and_sharding_rules(refs, ranks)
     check_dp_and_tp_steps(refs, ranks)
+    check_remat_steps(refs, ranks)
     check_sharded_fast_scans(refs, ranks)
     check_dp_rl(refs, ranks)
     check_dryrun_multichip(refs, ranks)

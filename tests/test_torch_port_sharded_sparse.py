@@ -28,7 +28,7 @@ tests/test_edge_partition.py and tests/test_multihost.py:
   1e-6) and its sharded SparseGCM checksum.
 """
 
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -62,6 +62,7 @@ from tests import multihost_common as mh
 
 B, OBS, HID = 3, 6, 8
 OUT_TOL, GRAD_TOL = 1e-5, 1e-4
+JAX_THREADS = 4
 
 
 def np_tree(tree):
@@ -299,70 +300,94 @@ CHAIN = ("chain", (TEMPORAL, LEARNED_W))
 @pytest.fixture(scope="module")
 def world():
     """Every case's spec, then the world of 4 ranks in a thread while the
-    JAX references compile and run here; (refs, [rank results])."""
+    JAX references compile and run here, in threads (XLA compiles without
+    the GIL); (refs, [rank results])."""
     torch.set_num_threads(1)
-    cases, thunks = {}, {}
+    with ThreadPoolExecutor(JAX_THREADS) as pool, \
+            ThreadPoolExecutor(1) as spawner:
+        return build_world(pool, spawner)
+
+
+def build_world(pool, spawner):
+    cases = {}
 
     def add(name, runner, pair):
-        cases[name] = (runner, pair[0])
-        thunks[name] = pair[1]
+        """pair: (spec, refs thunk or None), a future of one, or a
+        callable that makes one once the futures are done."""
+        cases[name] = (runner, pair)
 
     # JAX's sharded core where it is the same program as ours (d = 4, the
     # halo path); the replicated core everywhere
     two_windows = [(5, [5, 3, 4]), (5, [2, 5, 4])]
-    spec4, refs4 = sparse_case(4, TEMPORAL, two_windows, seed=4)
-    add("temporal4", "sharded_sparse", (spec4, refs4))
+    temporal = pool.submit(sparse_case, 4, TEMPORAL, two_windows, seed=4)
+    add("temporal4", "sharded_sparse", temporal)
     add("temporal2", "sharded_sparse",  # the same inputs and references
-        (dict(spec4, d=2), lambda: None))
-    add("learned_halo", "sharded_sparse",
-        sparse_case(4, LEARNED_W, [(4, [4] * B), (4, [4] * B)], seed=5))
-    add("learned_psum", "sharded_sparse",
-        sparse_case(2, LEARNED, [(4, [4, 3, 4])], seed=6,
-                    jax_sharded=False))
-    add("chain", "sharded_sparse",
-        sparse_case(4, CHAIN, [(4, [4] * B), (4, [4] * B)], seed=7,
-                    jax_sharded=False))
-    # t shrinking under a windowed learned selector (ADVICE r5): the
-    # replicated core is the reference
-    add("shrinking", "sharded_sparse",
-        sparse_case(2, LEARNED_W, [(6, [6] * B), (2, [2] * B),
-                                   (1, [1] * B)], seed=8, N=32, E=128,
-                    grad=False, jax_sharded=False))
+        lambda: (dict(temporal.result()[0], d=2), None))
+    add("learned_halo", "sharded_sparse", pool.submit(
+        sparse_case, 4, LEARNED_W, [(4, [4] * B), (4, [4] * B)], seed=5))
+    add("learned_psum", "sharded_sparse", pool.submit(
+        sparse_case, 2, LEARNED, [(4, [4, 3, 4])], seed=6,
+        jax_sharded=False))
+    add("chain", "sharded_sparse", pool.submit(
+        sparse_case, 4, CHAIN, [(4, [4] * B), (4, [4] * B)], seed=7,
+        jax_sharded=False))
+    # t shrinking under a windowed learned selector (where JAX's halo
+    # drops edges: ROADMAP Queue 3), the second window on a new module
+    # that continues the carried state: the replicated core is the
+    # reference
+    shrink = pool.submit(sparse_case, 2, LEARNED_W,
+                         [(6, [6] * B), (2, [2] * B), (1, [1] * B)], seed=8,
+                         N=32, E=128, grad=False, jax_sharded=False)
+    add("shrinking", "sharded_sparse", lambda: (
+        dict(shrink.result()[0], fresh_from=1), shrink.result()[1]))
     # a rank's lanes fill: edges counted in aux["dropped_edges"]
     # (against the port's replicated core, itself held to JAX above)
-    add("overflow", "sharded_sparse",
-        (sparse_case(4, TEMPORAL, [(5, [5] * B), (5, [5] * B)], seed=9,
-                     N=32, E=8, grad=False, jax_sharded=False)[0],
-         lambda: None))
-    add("adapter", "adapter", adapter_case(4))
+    overflow = pool.submit(sparse_case, 4, TEMPORAL,
+                           [(5, [5] * B), (5, [5] * B)], seed=9, N=32, E=8,
+                           grad=False, jax_sharded=False)
+    add("overflow", "sharded_sparse", lambda: (overflow.result()[0], None))
+    add("adapter", "adapter", pool.submit(adapter_case, 4))
     add("refusals", "refusals", ({}, dict))
     # d = 2 and the bucketed and psum modes share their inputs and JAX
     # references with the d = 4 / halo cases
-    spmm4 = spmm_case(14, 4)
+    spmm4 = pool.submit(spmm_case, 14, 4)
     add("spmm4", "spmm_partitioned", spmm4)
-    add("spmm2", "spmm_partitioned", (dict(spmm4[0], d=2, k_pair=32),
-                                      lambda: None))
-    halo = partitioned_case("halo", 4, train=True, halo=2)
+    add("spmm2", "spmm_partitioned",
+        lambda: (dict(spmm4.result()[0], d=2, k_pair=32), None))
+    halo = pool.submit(partitioned_case, "halo", 4, train=True, halo=2)
     add("halo_gcm", "partitioned_gcm", halo)
-    plain = {k: v for k, v in halo[0].items() if k != "targets"}
-    add("bucketed_gcm", "partitioned_gcm", (dict(
-        plain, mode="bucketed", d=2, gnn_kw={"k_pair": 32}), lambda: None))
-    add("psum_gcm", "partitioned_gcm", (dict(plain, mode="psum",
-                                             gnn_kw={}), lambda: None))
+
+    def plain(**kw):
+        spec = {k: v for k, v in halo.result()[0].items() if k != "targets"}
+        return dict(spec, **kw), None
+
+    add("bucketed_gcm", "partitioned_gcm",
+        lambda: plain(mode="bucketed", d=2, gnn_kw={"k_pair": 32}))
+    add("psum_gcm", "partitioned_gcm", lambda: plain(mode="psum",
+                                                     gnn_kw={}))
     add("auto", "auto_modes", ({"kws": [
         dict(num_nodes=16, halo=2), dict(num_nodes=128),
         dict(num_nodes=512, k_pair=16)]},
         lambda: ["halo", "psum", "bucketed"]))
-    add("multihost", "multihost", multihost_case())
-    with ThreadPoolExecutor(1) as pool:
-        ranks = pool.submit(spawn_world, run_cases, 4, "cpu",
-                            args=("cpu", cases), timeout_s=300)
-        refs = {name: thunk() for name, thunk in thunks.items()}
-        for name, same in (("temporal2", "temporal4"), ("spmm2", "spmm4"),
-                           ("bucketed_gcm", "halo_gcm"),
-                           ("psum_gcm", "halo_gcm")):
-            refs[name] = refs[same]
-        return refs, ranks.result()
+    add("multihost", "multihost", pool.submit(multihost_case))
+    pairs = {}
+    for name, (_, p) in cases.items():
+        if isinstance(p, Future):
+            p = p.result()
+        elif callable(p):
+            p = p()
+        pairs[name] = p
+    ranks = spawner.submit(spawn_world, run_cases, 4, "cpu", args=(
+        "cpu", {name: (runner, pairs[name][0])
+                for name, (runner, _) in cases.items()}), timeout_s=300)
+    futs = {name: pool.submit(pair[1]) for name, pair in pairs.items()
+            if pair[1] is not None}
+    refs = {name: f.result() for name, f in futs.items()}
+    for name, same in (("temporal2", "temporal4"), ("spmm2", "spmm4"),
+                       ("bucketed_gcm", "halo_gcm"),
+                       ("psum_gcm", "halo_gcm")):
+        refs[name] = refs[same]
+    return refs, ranks.result()
 
 
 def same_on_ranks(ranks, name, key):
@@ -386,7 +411,7 @@ def check_core(refs, ranks, name, jax_sharded=True, edges_exact=True):
         if jax_sharded:
             np.testing.assert_allclose(o, ref["sharded"][i], atol=OUT_TOL,
                                        rtol=0)
-    nodes, edges, weights, t, num_edges = got["state"]
+    nodes, edges, weights, t, num_edges, _ = got["state"]
     want = ref["state"]
     np.testing.assert_array_equal(nodes, want.nodes)
     np.testing.assert_array_equal(t, want.t)
@@ -443,7 +468,7 @@ def check_sharded_core(refs, ranks):
     for k in ("edges_per_node", "edge_density", "temperature"):
         np.testing.assert_allclose(aux[k], np.asarray(want[k]), atol=1e-5)
     # edges are owned by the rank that holds their source
-    _, edges, _, _, _ = ranks[0]["temporal4"]["state"]
+    _, edges, _, _, _, _ = ranks[0]["temporal4"]["state"]
     epl, nb = 64, 16
     for s in range(4):
         sl = edges[:, :, s * epl:(s + 1) * epl]
@@ -463,7 +488,7 @@ def check_state_conversion(refs, ranks):
                                       for r in range(4)])
         for a, b in zip(merged, jst):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-        nodes, edges, weights, t, num_edges = ranks[0][name]["state"]
+        nodes, edges, weights, t, num_edges, _ = ranks[0][name]["state"]
         np.testing.assert_array_equal(nodes, jst.nodes)
         np.testing.assert_array_equal(num_edges, jst.num_edges)
         epl = edges.shape[-1] // 4
@@ -476,13 +501,18 @@ def check_state_conversion(refs, ranks):
 
 
 def check_differences_from_jax(refs, ranks):
-    """ADVICE r5: windows whose t shrinks (6, 2, 1) under a windowed
-    learned selector keep every edge of the replicated core (the halo
-    from the longest t run, so the halo path holds), and a rank whose
+    """Windows whose t shrinks (6, 2, 1) under a windowed
+    learned selector, the later two on a new module that continues the
+    state, keep every edge of the replicated core (the halo from the
+    state's span, the longest window it holds edges of, so the halo path
+    holds) and drop none; a reset state forgets the span. A rank whose
     lanes fill reports its lost edges in aux["dropped_edges"]: stored +
     dropped = what the replicated core stores with room for all."""
     got = check_core(refs, ranks, "shrinking", jax_sharded=False)
     assert [m for m in got["modes"]] == [("halo", 12)] * 3
+    assert all((a["dropped_edges"] == 0).all() for a in got["aux"])
+    np.testing.assert_array_equal(got["state"][5], [6] * B)
+    assert got["reset_mode"] == ("halo", 7)  # window + the call's t
     got = ranks[0]["overflow"]
     for o in got["sharded"]:
         assert np.isfinite(o).all()
